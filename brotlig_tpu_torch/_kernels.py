@@ -1,8 +1,9 @@
 """Build-on-first-use loader for the hand-written CUDA kernels.
 
-The sources under ``csrc/`` are compiled with ``nvcc`` for ``sm_90a`` into
-one shared library with a plain C interface (no PyTorch headers, so the
-build takes seconds) and loaded with ctypes. Nothing is built or loaded
+The sources under ``csrc/`` are compiled with ``nvcc`` for ``sm_90a``, one
+``nvcc`` per source, all started together, and linked into one shared
+library with a plain C interface (no PyTorch headers, so the build takes
+seconds) that is loaded with ctypes. Nothing is built or loaded
 when this module is imported: the first CUDA tensor that reaches a kernel
 wrapper triggers the build. A machine without ``nvcc`` can import the
 package and run every plain version; a CUDA tensor on such a machine
@@ -11,9 +12,10 @@ raises instead of falling back.
 Each C entry point launches one kernel on the given stream and returns
 ``cudaGetLastError()``; the wrappers raise when it is not 0.
 
-``LAUNCHES`` counts, per kernel, the launches the wrappers made; a run
-resets it (``reset_launches``) and reads it to show that its main path
-went through the kernels.
+``LAUNCHES`` counts, per kernel, the launches the wrappers made, and
+``SWEEP_LAUNCHES`` splits the sweep kernel's count by group width; a run
+resets both (``reset_launches``) and reads them to show that its main
+path went through the kernels.
 """
 from __future__ import annotations
 
@@ -28,12 +30,13 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libbrotlig_kernels.so")
-SOURCES = ("tables.cu", "decode.cu")
-HEADERS = ("lane_ops.cuh",)
+SOURCES = ("tables.cu", "decode.cu", "phase_a.cu", "sweep.cu")
+HEADERS = ("lane_ops.cuh", "page_round.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC")
 
-LAUNCHES = {"tables": 0, "decode": 0}
+LAUNCHES = {"tables": 0, "decode": 0, "phase_a": 0, "sweep": 0}
+SWEEP_LAUNCHES = {128: 0, 512: 0, 1024: 0, 2048: 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -41,8 +44,9 @@ BUILD_LOG = ""
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, SWEEP_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _nvcc() -> str:
@@ -65,19 +69,36 @@ def _stale() -> bool:
 
 
 def build() -> float:
-    """Compile csrc/*.cu into the shared library; returns seconds taken.
-    The compiler's register/shared-memory report lands in BUILD_LOG."""
+    """Compile csrc/*.cu, one nvcc per source in parallel, and link them
+    into the shared library; returns seconds taken. The compiler's
+    register/shared-memory report lands in BUILD_LOG."""
     global BUILD_LOG
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[os.path.join(CSRC, f) for f in SOURCES]]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{f}.{tag}.o") for f in SOURCES]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", o,
+         os.path.join(CSRC, f)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for f, o in zip(SOURCES, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [(f, p.returncode, log) for f, p, log
+              in zip(SOURCES, procs, logs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{f} ({rc}):\n{log}" for f, rc, log in failed))
+    tmp = f"{LIB_PATH}.{tag}"
+    res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                         capture_output=True, text=True)
+    for o in objs:
+        os.remove(o)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{res.stderr}")
     os.replace(tmp, LIB_PATH)
-    BUILD_LOG = res.stderr
+    BUILD_LOG = "".join(logs)
     return time.perf_counter() - t0
 
 
@@ -96,6 +117,12 @@ def library():
         lib.blg_decode_pages.restype = i32
         lib.blg_decode_pages.argtypes = [vp, i32, i32, vp, vp, vp, vp, vp,
                                          i32, i32, vp, vp, vp, vp, vp]
+        lib.blg_phase_a.restype = i32
+        lib.blg_phase_a.argtypes = [vp, i32, i32, vp, vp, vp, vp, vp, i32,
+                                    i32, vp, vp, vp, vp, vp, vp, vp]
+        lib.blg_sweep.restype = i32
+        lib.blg_sweep.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32,
+                                  i32, i32, vp, vp]
         _lib = lib
         return _lib
 

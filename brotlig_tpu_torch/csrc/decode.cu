@@ -6,17 +6,9 @@
 // make_phase_b_kernel_wide. Plain version: the torch wavefront of
 // ops/decode.py (ops/decode_kernel.py::decode_fused_plain).
 //
-// One warp per page; lane s owns sub-stream s, as in the reference GPU
-// decoder (BrotliGCompute.hlsl:1349-1432). Each round:
-//   1. every lane decodes one command (insert/copy code, extra bits,
-//      distance code and extra bits) at its own cursor;
-//   2. the first lane holding the sentinel (k, a ballot) ends the page:
-//      lanes past k keep their cursor, lane k consumes the sentinel code;
-//   3. the distance ring (initially 4, 11, 15, 16) is walked over the
-//      round's k commands in order, broadcasting each by a shuffle;
-//   4. rlit = k * ceil(max(literals - prev_tail, 0) / k) literals are
-//      decoded, literal j by lane j % 32, into the page's literal queue;
-//   5. the k commands are executed in order with warp-wide copies: byte j
+// One warp per page; lane s owns sub-stream s. Each round runs steps 1-4
+// of page_round.cuh (commands, sentinel, distance ring, literals), then
+//   5. executes the k commands in order with warp-wide copies: byte j
 //      of a copy at cstart with distance d reads cstart - d + j % d, which
 //      always lies before cstart, so one copy has no dependencies inside
 //      itself (the reference's 32-byte wave copies, hlsl:1401-1419);
@@ -35,18 +27,10 @@
 // decode is bit-serial per lane (dependent loads of stream words and table
 // entries), so a batch of 256 pages keeps about two warps on each SM. This
 // first version does nothing about that; it is correct first.
-#include <climits>
-
-#include "lane_ops.cuh"
+#include "page_round.cuh"
 
 namespace blg {
 namespace {
-
-constexpr int kDictTotal = kAlphaIcp + kAlphaDst + kAlphaLit;
-constexpr int kMetaPerTable = 3 * kLenSlots;       // limit, first, offset
-constexpr int kStNoSentinel = 1;
-constexpr int kStOverrun = 2;
-constexpr int kStDistance = 4;
 
 __global__ void __launch_bounds__(kStreams)
     decode_kernel(const int32_t* __restrict__ buf3, int wc, int P,
@@ -63,20 +47,8 @@ __global__ void __launch_bounds__(kStreams)
   const int p = blockIdx.x;
   const int lane = threadIdx.x;
   const size_t pp = static_cast<size_t>(p);
-  for (int i = lane; i < 3 * kMetaPerTable; i += kStreams)
-    s_meta[i] = meta[pp * 3 * kMetaPerTable + i];
-  for (int i = lane; i < kDictTotal; i += kStreams)
-    s_dict[i] = dicts[pp * kDictTotal + i];
-  __syncwarp();
-
-  const Huff icp{s_meta, s_meta + kLenSlots, s_meta + 2 * kLenSlots, s_dict,
-                 kAlphaIcp, trivs[pp * 3 + 0]};
-  const int* m1 = s_meta + kMetaPerTable;
-  const Huff dst{m1, m1 + kLenSlots, m1 + 2 * kLenSlots, s_dict + kAlphaIcp,
-                 kAlphaDst, trivs[pp * 3 + 1]};
-  const int* m2 = s_meta + 2 * kMetaPerTable;
-  const Huff lit{m2, m2 + kLenSlots, m2 + 2 * kLenSlots,
-                 s_dict + kAlphaIcp + kAlphaDst, kAlphaLit, trivs[pp * 3 + 2]};
+  const PageCodes codes =
+      load_page_codes(meta, dicts, trivs, pp, lane, s_meta, s_dict);
 
   const int npf = npd[pp * 4 + 0];
   const int ndir = npd[pp * 4 + 1];
@@ -86,122 +58,33 @@ __global__ void __launch_bounds__(kStreams)
   const int lit_cap = S + 64;
 
   int bp = bp0[pp * kStreams + lane];
-  int r0 = 4, r1 = 11, r2 = 15, r3 = 16;         // distance ring
+  Ring ring;
   int ncmds = 0, prev_tail = 0, qtail = 0, pos_tot = 0, ins_tot = 0;
   int status = 0;
   bool done = false;
 
   for (int r = 0; r < max_rounds && !done; ++r) {  // all uniform
-    // ---- 1. one command per lane ----
-    int sym, ln;
-    decode_sym(icp, st.peek(lane, bp, 15), sym, ln);
-    const bool is_norm = sym < kSentinel;
-    const bool is_sent = sym == kSentinel;
-    int ic = 0, cc = 0;
-    if (is_norm) split_command(sym, ic, cc);
-    const int inscode = min(max(sym > kSentinel ? sym - kSentinel : ic, 0), 23);
-    const int copycode = min(max(cc, 0), 23);
-    const int ins_bits = is_sent ? 0 : kInsertExtra[inscode];
-    const int ins_base = is_sent ? 0 : kInsertBase[inscode];
-    const int cpy_bits = is_norm ? kCopyExtra[copycode] : 0;
-    const int cpy_base = is_norm ? kCopyBase[copycode] : 0;
-    int insert_len =
-        ins_base + static_cast<int>(st.peek(lane, bp + ln, ins_bits));
-    int copy_len = cpy_base + static_cast<int>(
-                                  st.peek(lane, bp + ln + ins_bits, cpy_bits));
-    const int d_off = ln + ins_bits + cpy_bits;
-    const bool need_dist = is_norm && sym >= 128;
-    int dsym, dln;
-    decode_sym(dst, st.peek(lane, bp + d_off, 15), dsym, dln);
-    const int dln_eff = need_dist ? dln : 0;
-    int dnb = need_dist && dsym >= 16 + ndir
-                  ? 1 + (max(dsym - ndir - 16, 0) >> (npf + 1))
-                  : 0;
-    dnb = min(max(dnb, 0), 30);
-    const int dextra =
-        static_cast<int>(st.peek(lane, bp + d_off + dln_eff, dnb));
-
-    // ---- 2. sentinel lane and rollback ----
-    const unsigned sent = __ballot_sync(kFull, is_sent);
-    const int k = sent ? __ffs(sent) - 1 : kStreams;
-    const bool valid = lane < k;
-    bp = valid ? bp + d_off + dln_eff + dnb : (lane == k ? bp + ln : bp);
-    if (!valid) {
-      insert_len = 0;
-      copy_len = 0;
-    }
-    const int dcode = valid ? (need_dist ? dsym : (is_norm ? 0 : -1)) : -1;
-    ncmds += k;
-
-    // ---- 3. distances: absolute codes here, the ring in command order ----
-    long long absv = 0;
-    if (dcode >= 16 + ndir) {
-      const int s = dcode - ndir - 16;
-      // > 30 extra bits only in a corrupt stream; keep the shift defined
-      const int nbits = min(1 + (s >> (npf + 1)), 40);
-      const long long offs =
-          (static_cast<long long>(2 + ((s >> npf) & 1)) << nbits) - 4;
-      absv = ((offs + (valid ? dextra : 0)) << npf) + (s & ((1 << npf) - 1)) +
-             ndir + 1;
-    } else if (dcode >= 16) {
-      absv = dcode - 15;
-    }
-    const int absv_i = static_cast<int>(min(absv, static_cast<long long>(INT_MAX)));
-    int my_dist = 0;
-    for (int i = 0; i < k; ++i) {
-      const int c = __shfl_sync(kFull, dcode, i);
-      const int av = __shfl_sync(kFull, absv_i, i);
-      int d;
-      if (c < 0) {
-        d = 0;
-      } else if (c < 4) {
-        d = c == 0 ? r0 : (c == 1 ? r1 : (c == 2 ? r2 : r3));
-      } else if (c < 16) {
-        const int base = c < 10 ? r0 : r1;
-        const int mag = ((c - 4) % 6) / 2 + 1;
-        d = (c & 1) ? base + mag : base - mag;
-      } else {
-        d = av;
-      }
-      if (lane == i) my_dist = d;
-      if (c > 0) {
-        r3 = r2;
-        r2 = r1;
-        r1 = r0;
-        r0 = d;
-      }
-    }
-
-    const int cov = insert_len + copy_len;
-    const int incl_cov = warp_incl_sum(cov, lane);
-    const int incl_ins = warp_incl_sum(insert_len, lane);
-    const int covtot = __shfl_sync(kFull, incl_cov, kStreams - 1);
-    const int litcount = __shfl_sync(kFull, incl_ins, kStreams - 1);
+    const RoundCmds c = decode_round_cmds(codes, st, lane, npf, ndir, bp,
+                                          ring);
+    ncmds += c.k;
 
     // ---- 4. the round's literals ----
-    const int aclit = max(litcount - prev_tail, 0);
-    const int rlit = k > 0 ? k * ((aclit + k - 1) / k) : 0;
-    prev_tail = rlit + prev_tail - litcount;
-    if (qtail + rlit > lit_cap || pos_tot + covtot > S) {
+    const int rlit = round_literal_count(c.k, c.litcount, prev_tail);
+    if (qtail + rlit > lit_cap || pos_tot + c.covtot > S) {
       status |= kStOverrun;
       break;
     }
-    for (int j = lane; j < rlit; j += kStreams) {
-      int s, n;
-      decode_sym(lit, st.peek(lane, bp, 15), s, n);
-      bp += n;
-      pq[qtail + j] = static_cast<uint8_t>(s);
-    }
+    decode_round_literals(codes.lit, st, lane, rlit, bp, pq + qtail);
     qtail += rlit;
     __syncwarp();
 
     // ---- 5. the round's commands, in order ----
-    for (int i = 0; i < k; ++i) {
-      const int ins_i = __shfl_sync(kFull, insert_len, i);
-      const int cpy_i = __shfl_sync(kFull, copy_len, i);
-      const int dist_i = __shfl_sync(kFull, my_dist, i);
-      const int wst = pos_tot + __shfl_sync(kFull, incl_cov - cov, i);
-      const int lst = ins_tot + __shfl_sync(kFull, incl_ins - insert_len, i);
+    for (int i = 0; i < c.k; ++i) {
+      const int ins_i = __shfl_sync(kFull, c.insert_len, i);
+      const int cpy_i = __shfl_sync(kFull, c.copy_len, i);
+      const int dist_i = __shfl_sync(kFull, c.dist, i);
+      const int wst = pos_tot + __shfl_sync(kFull, c.excl_cov, i);
+      const int lst = ins_tot + __shfl_sync(kFull, c.excl_ins, i);
       for (int j = lane; j < ins_i; j += kStreams) pout[wst + j] = pq[lst + j];
       __syncwarp();
       if (cpy_i > 0) {
@@ -215,9 +98,9 @@ __global__ void __launch_bounds__(kStreams)
         __syncwarp();
       }
     }
-    pos_tot += covtot;
-    ins_tot += litcount;
-    done = k < kStreams;
+    pos_tot += c.covtot;
+    ins_tot += c.litcount;
+    done = c.k < kStreams;
   }
   if (!done && !(status & kStOverrun)) status |= kStNoSentinel;
 

@@ -10,10 +10,11 @@ brotlig_tpu/ops/decode.py), and the port's container-level decode.
   chains, and one final gather of literals.
 
 This is the port's CPU route and the plain version of the fused decode
-kernel (csrc/decode.cu, wrapped by decode_kernel.decode_fused): the tests
-pin it to the JAX wavefront, and the chip smoke test holds the kernel to
-it. Loops whose trip count depends on the data read one scalar per
-iteration from the device (torch runs eagerly).
+kernel (csrc/decode.cu, wrapped by decode_kernel.decode_fused) and of the
+two-phase route's kernels (phase_a_kernel, sweep_kernel): the tests pin it
+to the JAX wavefront, and the chip smoke test holds the kernels to it.
+Loops whose trip count depends on the data read one scalar per iteration
+from the device (torch runs eagerly).
 
 Two things differ from the JAX module on purpose: literals go straight
 into a dense queue by one scatter per batch (no slot buffer and
@@ -25,11 +26,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from brotlig_tpu import native
-from brotlig_tpu.format import constants as C
-from brotlig_tpu.format.errors import Aborted
-from brotlig_tpu.format.headers import parse_container
-
+from .. import native
+from ..format import constants as C
+from ..format.errors import Aborted
+from ..format.headers import parse_container
 from ..state import staged_from_numpy, tables_from_lengths
 from . import arith_lut, tables_kernel
 from .bits import extract_bits, fetch_window, reverse_bits_15
@@ -379,6 +379,17 @@ def max_cmds_for(page_size: int) -> int:
 # Container-level decode
 # ---------------------------------------------------------------------------
 
+VALID_SWEEP_CW = (128, 512, 1024, 2048)
+VALID_VARIANTS = ("fused", "two_phase", "xla")
+
+
+def _check_opts(variant, sweep_cw: int):
+    if variant is not None and variant not in VALID_VARIANTS:
+        raise ValueError(f"variant={variant!r} not in {VALID_VARIANTS}")
+    if sweep_cw not in VALID_SWEEP_CW:
+        raise ValueError(f"sweep_cw={sweep_cw} not in {VALID_SWEEP_CW}")
+
+
 def resolve_device(device) -> torch.device:
     """torch.device for `device`; raises when CUDA is asked for and absent
     (there is no quiet CPU fallback)."""
@@ -391,11 +402,24 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def decode_batch(staged, page_size: int):
-    """Tables, then the fused page decode, for one staged batch.
-    Returns (out [P, page_size] uint8, ncmds [P], status [P])."""
-    from . import decode_kernel         # it imports this module
+def decode_batch(staged, page_size: int, variant=None,
+                 sweep_cw: int = 1024):
+    """Decode one staged batch on the route `variant` names (see
+    decode_stream). Returns (out [P, page_size] uint8, ncmds [P], status
+    [P])."""
+    # these modules import this one
+    from . import decode_kernel, phase_a_kernel, sweep_kernel
+    if variant == "xla":
+        tabs = tables_from_lengths(
+            *tables_kernel.load_tables_plain(staged.buf))
+        return decode_kernel.decode_fused_plain(staged.buf, staged.npd,
+                                                tabs, page_size)
     tabs = tables_from_lengths(*tables_kernel.load_tables(staged.buf))
+    if variant == "two_phase":
+        a = phase_a_kernel.phase_a(staged.buf, staged.npd, tabs, page_size)
+        out = sweep_kernel.sweep(a.ncmds, a.litq, a.ins, a.cpy, a.dist,
+                                 page_size, sweep_cw)
+        return out, a.ncmds, a.status
     return decode_kernel.decode_fused(staged.buf, staged.npd, tabs,
                                       page_size)
 
@@ -426,16 +450,29 @@ def staged_batches(data: bytes, info, batch_pages: int, device):
 
 
 def decode_stream(data: bytes, device, batch_pages: int = 256,
-                  feedback=None) -> bytes:
+                  feedback=None, variant=None, sweep_cw: int = 1024) -> bytes:
     """Decode a full Brotli-G container on `device` ("cuda" or "cpu").
 
     Raw pages are copied on the host; compressed pages are decoded in
     size-sorted batches of `batch_pages` (staged_batches), each through
-    the tables and decode steps on the device: the CUDA kernels for a
-    CUDA device, their plain versions on the CPU.
+    the tables step and a decode route on the device: the CUDA kernels
+    for a CUDA device, their plain versions on the CPU.
+
+    variant picks the route, as in the JAX package:
+    * None or "fused": the tables kernel, then the fused decode kernel
+      (commands, literals and copies in one launch);
+    * "two_phase": the tables kernel, the phase-A kernel (commands and
+      literals to device memory), then the sweep kernel at `sweep_cw`;
+    * "xla": the plain torch wavefront on `device`, no kernel (the
+      counterpart of the JAX package's XLA route); only when asked for.
+    sweep_cw (128, 512, 1024 or 2048) is the sweep kernel's group width.
+    It is validated on every route and used only by "two_phase": the
+    fused kernel executes each round's copies at once. The bytes never
+    depend on it. Bad values raise ValueError.
 
     feedback: optional callable(progress 0..100) -> bool, invoked after
     each batch; returning True raises format.errors.Aborted."""
+    _check_opts(variant, sweep_cw)
     dev = resolve_device(device)
     info = parse_container(data)
     if info.dc_params is not None:
@@ -454,7 +491,8 @@ def decode_stream(data: bytes, device, batch_pages: int = 256,
     n_comp = len(info.compressed_page_indices())
     done = 0
     for group, staged in staged_batches(data, info, batch_pages, dev):
-        pages, _, status = decode_batch(staged, page_size)
+        pages, _, status = decode_batch(staged, page_size, variant,
+                                        sweep_cw)
         if bool((status != 0).any()):
             raise ValueError("corrupt stream")
         pages_np = pages.cpu().numpy()

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from brotlig_tpu.format import constants as C
+from ..format import constants as C
 
 from .. import _kernels
 from . import decode as D
@@ -30,6 +30,7 @@ from .tables import stream_view_from_interleaved
 from .tables_kernel import ALPHABETS, NBS
 
 LEN_SLOTS = C.HUFFMAN_NUM_CODE_LENGTH + 1       # limit/first/offset width
+LIT_PAD = 64            # literal-queue slack past the page (the kernels')
 
 
 def decode_fused(buf3: torch.Tensor, npd: torch.Tensor, tables,
@@ -47,16 +48,24 @@ def decode_fused(buf3: torch.Tensor, npd: torch.Tensor, tables,
 
 def decode_fused_plain(buf3, npd, tables, page_size: int):
     """Plain torch version of the fused decode kernel."""
+    npostfix, ndirect, syms = plain_symbols(buf3, npd, tables, page_size)
+    out, status = D._stage_lz(*syms, npostfix, ndirect, page_size,
+                              D.max_cmds_for(page_size))
+    return out, syms[0], status
+
+
+def plain_symbols(buf3, npd, tables, page_size: int):
+    """The torch wavefront's phase A on a staged batch: (npostfix,
+    ndirect, (ncmds, litbuf, ins, cpy, dcode, dextra)) as ops/decode.py's
+    _phase_a returns them. The plain versions of the fused and the
+    phase-A kernels both start here."""
     wl = buf3.shape[0] * 128 // NBS
     view, bp0 = stream_view_from_interleaved(buf3, wl)
-    mc = D.max_cmds_for(page_size)
     npostfix, ndirect = npd[:, 0].to(torch.int64), npd[:, 1].to(torch.int64)
-    ncmds, litbuf, ins_a, cpy_a, dcode_a, dextra_a = D._phase_a(
-        view, bp0 + tables.bp, tables.icp, tables.dst, tables.lit,
-        npostfix, ndirect, page_size, mc)
-    out, status = D._stage_lz(ncmds, litbuf, ins_a, cpy_a, dcode_a,
-                              dextra_a, npostfix, ndirect, page_size, mc)
-    return out, ncmds, status
+    syms = D._phase_a(view, bp0 + tables.bp, tables.icp, tables.dst,
+                      tables.lit, npostfix, ndirect, page_size,
+                      D.max_cmds_for(page_size))
+    return npostfix, ndirect, syms
 
 
 def _pack_tables(tables):
@@ -75,32 +84,40 @@ def _pack_tables(tables):
             trivs.to(torch.int32).contiguous())
 
 
-def _decode_fused_cuda(buf3, npd, tables, page_size: int):
+def kernel_operands(buf3, npd, tables, page_size: int):
+    """Check a staged batch and its tables and convert them to what the
+    fused and phase-A kernels take: (buf3, npd, bp, meta, dicts, trivs),
+    contiguous int32."""
     if buf3.dtype != torch.int32 or buf3.dim() != 3 or buf3.shape[2] != 128:
         raise ValueError(f"staged buffer {tuple(buf3.shape)} {buf3.dtype}")
     if page_size not in C.PAGE_SIZE_CHOICES:
         raise ValueError(f"page size {page_size}")
-    wc, P, _ = buf3.shape
-    dev = buf3.device
-    buf3 = buf3.contiguous()
+    P = buf3.shape[1]
     npd = npd.to(torch.int32).contiguous()
     bp = tables.bp.to(torch.int32).contiguous()
     meta, dicts, trivs = _pack_tables(tables)
     if npd.shape != (P, 4) or bp.shape != (P, NBS) or \
             dicts.shape != (P, sum(ALPHABETS)):
         raise ValueError("staged batch and tables disagree on shape")
+    return buf3.contiguous(), npd, bp, meta, dicts, trivs
+
+
+def _decode_fused_cuda(buf3, npd, tables, page_size: int):
+    ops = kernel_operands(buf3, npd, tables, page_size)
+    wc, P, _ = buf3.shape
+    dev = buf3.device
     out = torch.empty((P, page_size), dtype=torch.uint8, device=dev)
-    litq = torch.empty((P, page_size + 64), dtype=torch.uint8, device=dev)
+    litq = torch.empty((P, page_size + LIT_PAD), dtype=torch.uint8,
+                       device=dev)
     ncmds = torch.empty(P, dtype=torch.int32, device=dev)
     status = torch.empty(P, dtype=torch.int32, device=dev)
-    _kernels.check_cuda_args(buf3, npd, bp, meta, dicts, trivs, out, litq,
-                             ncmds, status)
+    _kernels.check_cuda_args(*ops, out, litq, ncmds, status)
     lib = _kernels.library()
     rc = lib.blg_decode_pages(
-        buf3.data_ptr(), wc, P, npd.data_ptr(), bp.data_ptr(),
-        meta.data_ptr(), dicts.data_ptr(), trivs.data_ptr(), page_size,
-        D.max_cmds_for(page_size) // NBS, out.data_ptr(), litq.data_ptr(),
-        ncmds.data_ptr(), status.data_ptr(), _kernels.stream_ptr(dev))
+        ops[0].data_ptr(), wc, P, *[t.data_ptr() for t in ops[1:]],
+        page_size, D.max_cmds_for(page_size) // NBS, out.data_ptr(),
+        litq.data_ptr(), ncmds.data_ptr(), status.data_ptr(),
+        _kernels.stream_ptr(dev))
     if rc != 0:
         raise RuntimeError(f"decode kernel launch failed (cudaError {rc})")
     _kernels.LAUNCHES["decode"] += 1

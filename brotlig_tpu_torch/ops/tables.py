@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from brotlig_tpu.format import constants as C
+from ..format import constants as C
 
 from .bits import peek_bits
 

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from brotlig_tpu.format import constants as C
+from ..format import constants as C
 
 from .. import _kernels
 from .tables import load_table, stream_view_from_interleaved

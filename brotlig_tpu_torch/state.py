@@ -10,7 +10,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from brotlig_tpu.format import constants as C
+from .format import constants as C
 
 from .ops.tables import build_search
 

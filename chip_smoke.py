@@ -6,12 +6,16 @@ nvcc:
 
     python3 chip_smoke.py
 
-It builds the port's kernels from brotlig_tpu_torch/csrc with nvcc, holds
-each kernel to its plain torch version on a real batch (exact equality:
-the format is lossless), decodes mixed-corpus containers through
-brotlig_tpu_torch.decode(..., device="cuda") byte-exactly, checks that the
-decode went through both kernels, and times the kernels against their
-plain versions and the whole decode. Progress goes to earlier lines; the
+It builds the port's kernels from brotlig_tpu_torch/csrc with nvcc and
+holds each to its plain torch version on a real 256-page batch (exact
+equality: the format is lossless): the tables kernel, the fused decode
+kernel, the phase-A kernel and the sweep kernel at every group width. It
+then drives the main path, brotlig_tpu_torch.decode(..., device="cuda"),
+on mixed-corpus containers through the fused route and through the
+two-phase route (sweep_cw 128 and 2048 on every container, 512 and 1024 on
+the 16 MiB one), byte-exactly, checks from the launch counts that each
+route went through its kernels, and times the kernels against their plain
+versions and both routes end to end. Progress goes to earlier lines; the
 line before the last is the card's name and power limit, the last line a
 JSON verdict. Any failure raises and exits non-zero; without a CUDA device
 it exits non-zero before printing any result.
@@ -29,6 +33,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PAGE = 64 * 1024
 BATCH = 256
 REPS = 10
+SWEEP_CWS = (128, 512, 1024, 2048)
+# H100 SXM datasheet peaks: HBM bytes/s, and the float32
+# rate outside the tensor cores, used as an upper bound on the integer
+# operation rate of these kernels (so the operations bound is a lower one)
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+# operations a decoded symbol needs at least: its 15-level range search
+OPS_PER_SYMBOL = 16
 
 
 def gpu_line() -> str:
@@ -118,13 +130,49 @@ def max_abs_err(got, want) -> int:
                for g, w in zip(got, want))
 
 
+def bound(nbytes: int, ops: int) -> dict:
+    """The least time the card could take: bytes moved over the memory
+    rate or operations over the peak rate, whichever is larger."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": None}
+
+
+def check_pages(out, data: bytes, group, page: int, what: str) -> None:
+    import numpy as np
+    out = out.cpu().numpy()
+    expect = np.frombuffer(data, np.uint8)
+    for row, i in enumerate(group):
+        n = min(page, len(data) - i * page)
+        if not np.array_equal(out[row, :n], expect[i * page: i * page + n]):
+            raise AssertionError(f"{what}: page {i} wrong")
+
+
 def first_batch(blob: bytes, dev):
-    from brotlig_tpu.format.headers import parse_container
+    from brotlig_tpu_torch.format.headers import parse_container
     from brotlig_tpu_torch.ops.decode import staged_batches
     return next(staged_batches(blob, parse_container(blob), BATCH, dev))
 
 
-def tables_phase(staged) -> dict:
+def batch_counts(a, tabs, blob: bytes, group) -> dict:
+    """What one batch's data makes the kernels move: its compressed bytes,
+    the stream words its tables occupy, its commands and literals (from
+    the phase-A result a and the tables tabs)."""
+    import torch
+    from brotlig_tpu_torch.format.headers import parse_container
+    info = parse_container(blob)
+    ncmds = a.ncmds.long()
+    cid = torch.arange(a.ins.shape[1], device=ncmds.device)[None, :]
+    return {"pages": len(group),
+            "compressed": sum(int(info.sizes[i]) for i in group),
+            "table_words": int(((tabs.bp + 31) // 32).sum()),
+            "cmds": int(ncmds.sum()),
+            "lits": int((a.ins.long() * (cid < ncmds[:, None])).sum())}
+
+
+def tables_phase(staged, n: dict) -> dict:
     """Tables kernel vs its plain version on one staged batch."""
     import torch
     from brotlig_tpu_torch.ops import tables_kernel as tk
@@ -134,45 +182,127 @@ def tables_phase(staged) -> dict:
     err = max_abs_err(got, want)
     if err != 0:
         raise AssertionError(f"tables kernel disagrees with plain: {err}")
+    out_bytes = sum(g.numel() * 4 for g in got)
     return {"max_abs_err": err,
             "ms": time_ms(lambda: tk.load_tables(staged.buf), REPS),
-            "plain_ms": time_ms(lambda: tk.load_tables_plain(staged.buf), 1)}
+            "plain_ms": time_ms(lambda: tk.load_tables_plain(staged.buf), 1),
+            **bound(n["table_words"] * 4 + out_bytes, 0)}
 
 
-def decode_phase(staged, data: bytes, group, page: int) -> dict:
-    """Decode kernel vs its plain version on one staged batch, and both
-    against the input bytes."""
-    import numpy as np
+def decode_phase(staged, tabs, data: bytes, group, n: dict) -> dict:
+    """Fused decode kernel vs its plain version on one staged batch, and
+    both against the input bytes."""
     import torch
     from brotlig_tpu_torch.ops import decode_kernel as dk
-    from brotlig_tpu_torch.ops import tables_kernel as tk
-    from brotlig_tpu_torch.state import tables_from_lengths
-    tabs = tables_from_lengths(*tk.load_tables_plain(staged.buf))
-    got = dk.decode_fused(staged.buf, staged.npd, tabs, page)
+    got = dk.decode_fused(staged.buf, staged.npd, tabs, PAGE)
     torch.cuda.synchronize()
-    want = dk.decode_fused_plain(staged.buf, staged.npd, tabs, page)
+    want = dk.decode_fused_plain(staged.buf, staged.npd, tabs, PAGE)
     err = max_abs_err(got, want)
     if err != 0:
         raise AssertionError(f"decode kernel disagrees with plain: {err}")
     if int(got[2].abs().sum()) != 0:
         raise AssertionError("decode kernel flagged a valid page")
-    out = got[0].cpu().numpy()
-    expect = np.frombuffer(data, np.uint8)
-    for row, i in enumerate(group):
-        n = min(page, len(data) - i * page)
-        if not np.array_equal(out[row, :n], expect[i * page: i * page + n]):
-            raise AssertionError(f"decode kernel: page {i} wrong")
-    return {"max_abs_err": err, "pages": len(group),
+    check_pages(got[0], data, group, PAGE, "decode kernel")
+    return {"max_abs_err": err,
             "ms": time_ms(lambda: dk.decode_fused(staged.buf, staged.npd,
-                                                  tabs, page), REPS),
+                                                  tabs, PAGE), REPS),
             "plain_ms": time_ms(lambda: dk.decode_fused_plain(
-                staged.buf, staged.npd, tabs, page), 1)}
+                staged.buf, staged.npd, tabs, PAGE), 1),
+            **bound(n["compressed"] + n["pages"] * PAGE,
+                    OPS_PER_SYMBOL * (n["cmds"] + n["lits"])
+                    + n["pages"] * PAGE)}
+
+
+def phase_a_errors(got, want) -> int:
+    """Largest difference between two PhaseA results where they are
+    defined: ncmds and status; commands below ncmds; the literal queue up
+    to each page's literal count."""
+    import torch
+    err = max_abs_err((got.ncmds, got.status), (want.ncmds, want.status))
+    if err:
+        return err
+    ncmds = want.ncmds.long()
+    cid = torch.arange(want.ins.shape[1], device=ncmds.device)[None, :]
+    valid = cid < ncmds[:, None]
+    for g, w in ((got.ins, want.ins), (got.cpy, want.cpy),
+                 (got.dist, want.dist)):
+        err = max(err, int(((g.long() - w.long()) * valid).abs().max()))
+    nlit = (want.ins.long() * valid).sum(dim=1)
+    pos = torch.arange(want.litq.shape[1], device=ncmds.device)[None, :]
+    lit_diff = (got.litq.long() - want.litq.long()) * (pos < nlit[:, None])
+    return max(err, int(lit_diff.abs().max()))
+
+
+def phase_a_phase(staged, tabs):
+    """Phase-A kernel vs its plain version on one staged batch; returns
+    (result, the kernel's PhaseA)."""
+    import torch
+    from brotlig_tpu_torch.ops import phase_a_kernel as pk
+    got = pk.phase_a(staged.buf, staged.npd, tabs, PAGE)
+    torch.cuda.synchronize()
+    want = pk.phase_a_plain(staged.buf, staged.npd, tabs, PAGE)
+    err = phase_a_errors(got, want)
+    if err != 0:
+        raise AssertionError(f"phase-A kernel disagrees with plain: {err}")
+    if int(got.status.abs().sum()) != 0:
+        raise AssertionError("phase-A kernel flagged a valid page")
+    return {"max_abs_err": err,
+            "ms": time_ms(lambda: pk.phase_a(staged.buf, staged.npd, tabs,
+                                             PAGE), REPS),
+            "plain_ms": time_ms(lambda: pk.phase_a_plain(
+                staged.buf, staged.npd, tabs, PAGE), 1)}, got
+
+
+def sweep_phases(a, data: bytes, group, n: dict) -> dict:
+    """The sweep kernel at every group width vs its plain version, on the
+    phase-A kernel's output of one batch; the middle stage timed apart."""
+    import torch
+    from brotlig_tpu_torch.ops import sweep_kernel as sk
+    inp = sk.middle_stage(a.ncmds, a.litq, a.ins, a.cpy, a.dist, PAGE)
+    want = sk.sweep_plain(a.ncmds, a.litq, a.ins, a.cpy, a.dist, PAGE)
+    torch.cuda.synchronize()
+    check_pages(want, data, group, PAGE, "plain sweep")
+    plain_ms = time_ms(lambda: sk.sweep_plain(a.ncmds, a.litq, a.ins,
+                                              a.cpy, a.dist, PAGE), 1)
+    middle_ms = time_ms(lambda: sk.middle_stage(a.ncmds, a.litq, a.ins,
+                                                a.cpy, a.dist, PAGE), REPS)
+    res = {"middle_ms": middle_ms}
+    for cw in SWEEP_CWS:
+        got = sk.launch_sweep(inp, PAGE, cw)
+        torch.cuda.synchronize()
+        err = max_abs_err((got,), (want,))
+        if err != 0:
+            raise AssertionError(f"sweep kernel cw {cw} disagrees with "
+                                 f"plain: {err}")
+        res[cw] = {"max_abs_err": err, "plain_ms": plain_ms,
+                   "ms": time_ms(lambda: sk.launch_sweep(inp, PAGE, cw),
+                                 REPS),
+                   **bound(16 * n["cmds"] + n["lits"] + n["pages"] * PAGE,
+                           n["pages"] * PAGE)}
+    return res
 
 
 def batches_of(blob: bytes) -> int:
-    from brotlig_tpu.format.headers import parse_container
+    from brotlig_tpu_torch.format.headers import parse_container
     n = len(parse_container(blob).compressed_page_indices())
     return (n + BATCH - 1) // BATCH
+
+
+def drive(cases, runs, what: str) -> tuple:
+    """The main path: decode every (container, options) pair of runs on
+    the card byte-exactly, with the launch counts set to 0 just before and
+    read just after. Returns (counts, sweep counts by width)."""
+    import brotlig_tpu_torch
+    from brotlig_tpu_torch import _kernels
+    _kernels.reset_launches()
+    for name, opts in runs:
+        data, blob = cases[name]
+        if brotlig_tpu_torch.decode(blob, device="cuda", **opts) != data:
+            raise AssertionError(f"{name} {opts}: decode differs from the "
+                                 "input")
+        print(f"[smoke] {what} decode ok: {name} {opts} "
+              f"({batches_of(blob)} batches)", flush=True)
+    return dict(_kernels.LAUNCHES), dict(_kernels.SWEEP_LAUNCHES)
 
 
 def main() -> int:
@@ -180,17 +310,18 @@ def main() -> int:
     import torch
 
     sys.path.insert(0, ROOT)
-    from brotlig_tpu import native
-    from brotlig_tpu.api import decode_cpu
     import brotlig_tpu_torch
-    from brotlig_tpu_torch import _kernels
+    from brotlig_tpu_torch import _kernels, native
+    from brotlig_tpu_torch.format.headers import parse_container
+    from brotlig_tpu_torch.ops import tables_kernel as tk
     from brotlig_tpu_torch.ops.decode import staged_batches
-    from brotlig_tpu.format.headers import parse_container
+    from brotlig_tpu_torch.state import tables_from_lengths
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     gpu = gpu_line()
     print(f"[smoke] gpu: {gpu}; torch {torch.__version__}, CUDA "
@@ -201,7 +332,7 @@ def main() -> int:
     print(f"[smoke] nvcc build of {', '.join(_kernels.SOURCES)}: "
           f"{secs:.2f} s", flush=True)
     for line in _kernels.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"[smoke]   {line.strip()}")
 
     t0 = time.perf_counter()
@@ -212,61 +343,99 @@ def main() -> int:
 
     # ---- kernels against their plain versions on one 256-page batch ----
     group, staged = first_batch(blob16, dev)
-    k1 = tables_phase(staged)
+    tabs = tables_from_lengths(*tk.load_tables_plain(staged.buf))
+    k4, a = phase_a_phase(staged, tabs)
+    print(f"[smoke] phase-A kernel == plain (tolerance 0) on {len(group)} "
+          f"pages; kernel {k4['ms']:.4f} ms, plain {k4['plain_ms']:.1f} ms "
+          f"[{gpu}]", flush=True)
+    n = batch_counts(a, tabs, blob16, group)
+    print(f"[smoke] batch: {n}", flush=True)
+    k4.update(bound(n["compressed"] + 12 * n["cmds"] + n["lits"],
+                    OPS_PER_SYMBOL * (n["cmds"] + n["lits"])))
+    k1 = tables_phase(staged, n)
     print(f"[smoke] tables kernel == plain (tolerance 0) on {len(group)} "
           f"pages; kernel {k1['ms']:.4f} ms, plain {k1['plain_ms']:.2f} ms "
           f"[{gpu}]", flush=True)
-    k2 = decode_phase(staged, data16, group, PAGE)
+    k2 = decode_phase(staged, tabs, data16, group, n)
     print(f"[smoke] decode kernel == plain == input (tolerance 0) on "
-          f"{k2['pages']} pages; kernel {k2['ms']:.3f} ms, plain "
+          f"{len(group)} pages; kernel {k2['ms']:.3f} ms, plain "
           f"{k2['plain_ms']:.1f} ms [{gpu}]", flush=True)
+    k5 = sweep_phases(a, data16, group, n)
+    for cw in SWEEP_CWS:
+        print(f"[smoke] sweep kernel cw {cw} == plain == input (tolerance "
+              f"0); kernel {k5[cw]['ms']:.4f} ms, plain "
+              f"{k5[cw]['plain_ms']:.2f} ms [{gpu}]", flush=True)
+    print(f"[smoke] sweep middle stage (torch) {k5['middle_ms']:.4f} ms "
+          f"[{gpu}]", flush=True)
+    del a
 
     # ---- the main path: decode(..., device="cuda") on every container ----
     t0 = time.perf_counter()
     data64 = corpus(1024)
-    cases = [
-        ("16 MiB mixed, q11, 64 KiB pages", data16, blob16),
-        ("64 MiB mixed, q1, 64 KiB pages", data64,
-         native.encode(data64, page_size=PAGE, quality=1)),
-        ("300 pages, q1, short last batch", data64[:300 * PAGE],
-         native.encode(data64[:300 * PAGE], page_size=PAGE, quality=1)),
-        ("32 KiB pages, q11", data16[:8 << 20],
-         native.encode(data16[:8 << 20], page_size=32768, quality=11)),
-        ("128 KiB pages, q11", data16,
-         native.encode(data16, page_size=131072, quality=11)),
-    ]
+    cases = {
+        "16 MiB mixed, q11, 64 KiB pages": (data16, blob16),
+        "64 MiB mixed, q1, 64 KiB pages": (
+            data64, native.encode(data64, page_size=PAGE, quality=1)),
+        "300 pages, q1, short last batch": (
+            data64[:300 * PAGE],
+            native.encode(data64[:300 * PAGE], page_size=PAGE, quality=1)),
+        "32 KiB pages, q11": (
+            data16[:8 << 20],
+            native.encode(data16[:8 << 20], page_size=32768, quality=11)),
+        "128 KiB pages, q11": (
+            data16, native.encode(data16, page_size=131072, quality=11)),
+    }
     print(f"[smoke] containers encoded in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    if batches_of(cases[1][2]) < 3 or batches_of(cases[2][2]) != 2:
+    names = list(cases)
+    if batches_of(cases[names[1]][1]) < 3 or \
+            batches_of(cases[names[2]][1]) != 2:
         raise AssertionError("the 64 MiB and 300-page containers must fill "
                              "several batches, and two")
-    want_batches = sum(batches_of(b) for _, _, b in cases)
-    _kernels.reset_launches()
-    for name, data, blob in cases:
-        got = brotlig_tpu_torch.decode(blob, device="cuda")
-        if got != data:
-            raise AssertionError(f"{name}: decode differs from the input")
-        print(f"[smoke] decode ok: {name} ({batches_of(blob)} batches)",
-              flush=True)
-    launches = dict(_kernels.LAUNCHES)
-    print(f"[smoke] launches on the main path: {launches} "
-          f"(>= {want_batches} batches)", flush=True)
-    for k, n in launches.items():
-        if n < want_batches:
-            raise AssertionError(f"kernel {k} launched {n} times, fewer "
-                                 f"than the {want_batches} batches")
-    if decode_cpu(blob16) != data16:
+    all_batches = sum(batches_of(b) for _, b in cases.values())
+
+    fused, _ = drive(cases, [(nm, {}) for nm in names], "fused")
+    print(f"[smoke] launches on the fused route: {fused} "
+          f"(>= {all_batches} batches)", flush=True)
+    for k in ("tables", "decode"):
+        if fused[k] < all_batches:
+            raise AssertionError(f"kernel {k} launched {fused[k]} times, "
+                                 f"fewer than the {all_batches} batches")
+
+    runs = [(nm, {"variant": "two_phase", "sweep_cw": cw})
+            for cw in (128, 2048) for nm in names]
+    runs += [(names[0], {"variant": "two_phase", "sweep_cw": cw})
+             for cw in (512, 1024)]
+    two, by_cw = drive(cases, runs, "two-phase")
+    want_cw = {cw: all_batches if cw in (128, 2048)
+               else batches_of(blob16) for cw in SWEEP_CWS}
+    print(f"[smoke] launches on the two-phase route: {two}, sweep by "
+          f"width {by_cw} (>= {want_cw} batches)", flush=True)
+    two_batches = sum(want_cw.values())
+    for k in ("tables", "phase_a", "sweep"):
+        if two[k] < two_batches:
+            raise AssertionError(f"kernel {k} launched {two[k]} times, "
+                                 f"fewer than the {two_batches} batches")
+    for cw, want in want_cw.items():
+        if by_cw[cw] < want:
+            raise AssertionError(f"sweep cw {cw} launched {by_cw[cw]} "
+                                 f"times, fewer than {want} batches")
+    if two["decode"] != 0:
+        raise AssertionError("the two-phase route launched the fused kernel")
+    if native.decode(blob16) != data16:
         raise AssertionError("native CPU decoder disagrees with the input")
 
-    # ---- end to end, and staging on its own ----
-    e2e = []
+    # ---- end to end, both routes in turns, and staging on its own ----
+    e2e = {"fused": [], "two_phase": []}
     for _ in range(4):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        got = brotlig_tpu_torch.decode(blob16, device="cuda")
-        e2e.append(time.perf_counter() - t0)
-    if got != data16:
-        raise AssertionError("timed decode differs from the input")
+        for variant in e2e:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = brotlig_tpu_torch.decode(blob16, device="cuda",
+                                           variant=variant)
+            e2e[variant].append(time.perf_counter() - t0)
+            if got != data16:
+                raise AssertionError(f"timed {variant} decode differs")
     info = parse_container(blob16)
     stage = []
     for _ in range(3):
@@ -274,25 +443,32 @@ def main() -> int:
         for _ in staged_batches(blob16, info, BATCH, "cpu"):
             pass
         stage.append(time.perf_counter() - t0)
-    e2e_s = float(np.median(e2e[1:]))
-    print(f"[smoke] end to end, 16 MiB q11 container: "
-          f"{[round(t * 1e3, 3) for t in e2e]} ms -> "
-          f"{len(data16) / e2e_s / 1e9:.4f} GB/s (median of warm runs); "
-          f"host staging alone {min(stage) * 1e3:.3f} ms [{gpu}]",
+    for variant, times in e2e.items():
+        med = float(np.median(times[1:]))
+        print(f"[smoke] end to end, {variant} (sweep_cw 1024), 16 MiB q11 "
+              f"container: {[round(t * 1e3, 3) for t in times]} ms -> "
+              f"{len(data16) / med / 1e9:.4f} GB/s (median of warm runs) "
+              f"[{gpu}]", flush=True)
+    print(f"[smoke] host staging alone {min(stage) * 1e3:.3f} ms [{gpu}]",
           flush=True)
 
+    src = "brotlig_tpu_torch/csrc/"
+    pallas = "brotlig_tpu/ops/pallas_decode.py"
     kernels = [
-        {"name": "tables", "route": "cuda",
-         "source": "brotlig_tpu_torch/csrc/tables.cu",
+        {"name": "tables", "route": "cuda", "source": src + "tables.cu",
          "replaces": "brotlig_tpu/ops/pallas_tables.py:45",
-         "launches": launches["tables"], "max_abs_err": k1["max_abs_err"],
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"]},
-        {"name": "decode", "route": "cuda",
-         "source": "brotlig_tpu_torch/csrc/decode.cu",
-         "replaces": "brotlig_tpu/ops/pallas_decode.py:1595",
-         "launches": launches["decode"], "max_abs_err": k2["max_abs_err"],
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
-    ]
+         "launches": fused["tables"], **k1},
+        {"name": "decode", "route": "cuda", "source": src + "decode.cu",
+         "replaces": f"{pallas}:1595", "launches": fused["decode"], **k2},
+        {"name": "phase_a", "route": "cuda", "source": src + "phase_a.cu",
+         "replaces": f"{pallas}:311", "launches": two["phase_a"], **k4},
+    ] + [
+        {"name": f"sweep_cw{cw}", "route": "cuda", "source": src + "sweep.cu",
+         "replaces": f"{pallas}:{1149 if cw == 128 else 886}",
+         "launches": by_cw[cw], **k5[cw]}
+        for cw in SWEEP_CWS]
+    print(f"[smoke] whole run {time.perf_counter() - t_start:.1f} s, "
+          "builds included", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """The port's public API: import hygiene, device handling, and the errors
-it shares with the JAX package."""
+and format constants it shares with the JAX package."""
 import os
+import re
 import subprocess
 import sys
 
@@ -20,12 +21,27 @@ from test_roundtrip import make_data
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def _port_sources():
+    """Every .py file of the port, and chip_smoke.py."""
+    pkg = os.path.join(REPO, "brotlig_tpu_torch")
+    found = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(pkg):
+        found += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return found
+
+
 def test_import_pulls_in_no_jax():
-    code = ("import sys, brotlig_tpu_torch, brotlig_tpu_torch.state, "
-            "brotlig_tpu_torch.ops.decode_kernel, "
-            "brotlig_tpu_torch.ops.tables_kernel, brotlig_tpu_torch._kernels;"
-            "bad = sorted(m for m in sys.modules if m == 'jax' "
-            "or m.startswith('jax.') or m.startswith('brotlig_tpu.ops'));"
+    """Importing the port and every module of it loads neither JAX nor
+    any module of the JAX package."""
+    mods = []
+    for path in _port_sources()[1:]:
+        mod = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
+        mods.append(mod.removesuffix(".__init__"))
+    assert "brotlig_tpu_torch.ops.sweep_kernel" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', "
+            "'brotlig_tpu') or m.startswith(('jax.', 'brotlig_tpu.')))\n"
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
@@ -33,13 +49,24 @@ def test_import_pulls_in_no_jax():
 
 
 def test_package_sources_never_import_jax():
-    pkg = os.path.join(REPO, "brotlig_tpu_torch")
-    for root, _, files in os.walk(pkg):
-        for f in files:
-            if f.endswith(".py"):
-                with open(os.path.join(root, f)) as fh:
-                    src = fh.read()
-                assert "import jax" not in src and "from jax" not in src, f
+    imports_jax_package = re.compile(
+        r"^\s*(import|from)\s+brotlig_tpu(\.|\s|$)", re.M)
+    for path in _port_sources():
+        with open(path) as fh:
+            src = fh.read()
+        assert "import jax" not in src and "from jax" not in src, path
+        assert not imports_jax_package.search(src), path
+
+
+def test_format_constants_equal_the_jax_package():
+    from brotlig_tpu.format import constants as want
+    from brotlig_tpu_torch.format import constants as got
+    names = [n for n in dir(want) if n.isupper()]
+    assert names == [n for n in dir(got) if n.isupper()]
+    for n in names:
+        assert getattr(got, n) == getattr(want, n), n
+    for size in (0, 1, 70_000, 1 << 24):
+        assert got.max_compressed_size(size) == want.max_compressed_size(size)
 
 
 def test_cuda_device_without_gpu_raises():
@@ -76,7 +103,10 @@ def test_bad_magic_same_error_as_jax_package():
         decode_stream_jax(bytes(blob))
     with pytest.raises(ValueError) as got:
         brotlig_tpu_torch.decode(bytes(blob), device="cpu")
-    assert type(got.value) is type(want.value)
+    # the port raises its own copy of the error class: same name, code
+    # and message
+    assert type(got.value).__name__ == type(want.value).__name__
+    assert got.value.code == want.value.code
     assert str(got.value) == str(want.value)
 
 

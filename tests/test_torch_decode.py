@@ -11,12 +11,12 @@ import torch
 
 from brotlig_tpu import native
 from brotlig_tpu.api import decode_cpu
-from brotlig_tpu.format.errors import Aborted
 from brotlig_tpu.format.headers import parse_container
 from brotlig_tpu.ops import decode as JD
 from brotlig_tpu.ops import tables as JT
 from brotlig_tpu.refimpl.codec import encode
 
+from brotlig_tpu_torch.format.errors import Aborted
 from brotlig_tpu_torch.ops import decode as TD
 from brotlig_tpu_torch.ops import decode_kernel, tables_kernel
 from brotlig_tpu_torch.ops.decode import decode_stream, staged_batches

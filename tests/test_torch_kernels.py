@@ -9,14 +9,15 @@ need not have). Every comparison is exact: the format fixes the bytes.
 import pytest
 import torch
 
-from brotlig_tpu import native
-from brotlig_tpu.format.headers import parse_container
-
-from brotlig_tpu_torch import _kernels, decode
-from brotlig_tpu_torch.ops import decode_kernel, tables_kernel
-from brotlig_tpu_torch.ops.decode import staged_batches
+from brotlig_tpu_torch import _kernels, decode, native
+from brotlig_tpu_torch.format.headers import parse_container
+from brotlig_tpu_torch.ops import (decode_kernel, phase_a_kernel,
+                                   sweep_kernel, tables_kernel)
+from brotlig_tpu_torch.ops.decode import VALID_SWEEP_CW, staged_batches
 from brotlig_tpu_torch.state import Staged, tables_from_lengths
 from test_roundtrip import make_data
+from test_torch_two_phase import (EDGE_CASES, edge_case, mixed_pages,
+                                  plain_phase_a)
 
 pytestmark = pytest.mark.cuda
 
@@ -93,3 +94,88 @@ def test_garbage_pages_flagged_not_hung(cuda_dev):
     _, _, status = decode_kernel.decode_fused(st.buf, st.npd, tabs, S)
     _, _, p_status = decode_kernel.decode_fused_plain(st.buf, st.npd, tabs, S)
     assert bool((status != 0).all()) and bool((p_status != 0).all())
+
+
+def two_phase_case(name):
+    """(datas, page blobs, page size) of the mixed batch or an edge input
+    of tests/test_torch_two_phase.py."""
+    if name == "mixed":
+        datas, comps = mixed_pages()
+        return datas, comps, 32768
+    data, comp, page_size = edge_case(name)
+    return [data], [comp], page_size
+
+
+def assert_phase_a_equal(got, want):
+    """Equal where PhaseA defines its fields: ncmds and status; commands
+    below ncmds; the literal queue up to each page's literal count."""
+    assert torch.equal(got.ncmds.long(), want.ncmds.long())
+    assert torch.equal(got.status.long(), want.status.long())
+    for p, k in enumerate(want.ncmds.tolist()):
+        for g, w in ((got.ins, want.ins), (got.cpy, want.cpy),
+                     (got.dist, want.dist)):
+            assert torch.equal(g[p, :k].long(), w[p, :k].long())
+        nlit = int(want.ins[p, :k].sum())
+        assert torch.equal(got.litq[p, :nlit], want.litq[p, :nlit])
+
+
+@pytest.mark.parametrize("case", ("mixed",) + EDGE_CASES)
+def test_phase_a_kernel_matches_plain(cuda_dev, case):
+    _, comps, page_size = two_phase_case(case)
+    st, tabs, want = plain_phase_a(comps, page_size, cuda_dev)
+    got = phase_a_kernel.phase_a(st.buf, st.npd, tabs, page_size)
+    torch.cuda.synchronize()
+    assert_phase_a_equal(got, want)
+    assert int(got.status.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("cw", VALID_SWEEP_CW)
+@pytest.mark.parametrize("case", ("mixed",) + EDGE_CASES)
+def test_sweep_kernel_matches_plain(cuda_dev, case, cw):
+    datas, comps, page_size = two_phase_case(case)
+    st, tabs, _ = plain_phase_a(comps, page_size, cuda_dev)
+    a = phase_a_kernel.phase_a(st.buf, st.npd, tabs, page_size)
+    got = sweep_kernel.sweep(a.ncmds, a.litq, a.ins, a.cpy, a.dist,
+                             page_size, cw)
+    torch.cuda.synchronize()
+    want = sweep_kernel.sweep_plain(a.ncmds, a.litq, a.ins, a.cpy, a.dist,
+                                    page_size)
+    assert torch.equal(got, want)
+    for p, d in enumerate(datas):
+        assert got[p, :len(d)].cpu().numpy().tobytes() == d
+
+
+@pytest.mark.parametrize("cw", VALID_SWEEP_CW)
+def test_decode_stream_two_phase_cuda(cuda_dev, cw):
+    data, blob = container(65536)
+    _kernels.reset_launches()
+    assert decode(blob, device="cuda", variant="two_phase",
+                  sweep_cw=cw) == data
+    assert _kernels.LAUNCHES == {"tables": 1, "decode": 0, "phase_a": 1,
+                                 "sweep": 1}
+    assert _kernels.SWEEP_LAUNCHES[cw] == 1
+
+
+def test_xla_variant_runs_the_plain_route_on_the_card(cuda_dev):
+    data = b"".join(make_data(k, 32768, seed=i)
+                    for i, k in enumerate(("text", "structured")))
+    blob = native.encode(data, page_size=32768)
+    _kernels.reset_launches()
+    assert decode(blob, device="cuda", variant="xla") == data
+    assert not any(_kernels.LAUNCHES.values())
+
+
+def test_two_phase_garbage_pages_flagged_not_hung(cuda_dev):
+    """All-zero streams: the phase-A kernel stops at its bounds and flags
+    every page, and the sweep runs over whatever it stored without
+    reading or writing out of bounds."""
+    P, wc, S = 4, 8, 32768
+    st = Staged(torch.zeros((wc, P, 128), dtype=torch.int32, device=cuda_dev),
+                torch.zeros((P, 4), dtype=torch.int32, device=cuda_dev))
+    tabs = tables_from_lengths(*tables_kernel.load_tables_plain(st.buf))
+    a = phase_a_kernel.phase_a(st.buf, st.npd, tabs, S)
+    p = phase_a_kernel.phase_a_plain(st.buf, st.npd, tabs, S)
+    assert bool((a.status != 0).all()) and bool((p.status != 0).all())
+    for cw in VALID_SWEEP_CW:
+        sweep_kernel.sweep(a.ncmds, a.litq, a.ins, a.cpy, a.dist, S, cw)
+    torch.cuda.synchronize()
