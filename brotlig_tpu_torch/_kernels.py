@@ -116,7 +116,7 @@ def library():
         lib.blg_load_tables.argtypes = [vp, i32, i32, vp, vp, vp, vp, vp, vp]
         lib.blg_decode_pages.restype = i32
         lib.blg_decode_pages.argtypes = [vp, i32, i32, vp, vp, vp, vp, vp,
-                                         i32, i32, vp, vp, vp, vp, vp]
+                                         i32, i32, vp, vp, vp, vp]
         lib.blg_phase_a.restype = i32
         lib.blg_phase_a.argtypes = [vp, i32, i32, vp, vp, vp, vp, vp, i32,
                                     i32, vp, vp, vp, vp, vp, vp, vp]

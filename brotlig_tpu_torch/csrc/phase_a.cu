@@ -21,9 +21,13 @@
 // double-buffered DMA staging and its literal chunk-slot records have no
 // counterpart. Every loop is bounded as in the fused kernel.
 //
-// What bounds it on this card: latency, as the fused kernel (bit-serial
-// Huffman decode per lane, one warp per page). It does less per round
-// than the fused kernel (no copies) and writes 12 bytes per command.
+// What bounds it on this card: latency, as the fused kernel: a page is a
+// serial chain of rounds and of bit-serial decodes per lane, its stores
+// (12 bytes a command, a byte a literal) are fire-and-forget, and a batch
+// takes as long as its slowest page alone (every page is resident). So
+// the work is in the round of page_round.cuh, which K2 shares: the bit
+// reservoir, the first-level symbol tables, the length-code tables held a
+// lane each, and the branch-free ring scan each shorten that chain.
 #include "page_round.cuh"
 
 namespace blg {
@@ -40,30 +44,30 @@ __global__ void __launch_bounds__(kStreams)
                    int32_t* __restrict__ dist_out, uint8_t* __restrict__ litq,
                    int32_t* __restrict__ ncmds_out,
                    int32_t* __restrict__ status_out) {
-  __shared__ int s_meta[3 * kMetaPerTable];
-  __shared__ int s_dict[kDictTotal];
+  __shared__ CodeSmem sm;
   const int p = blockIdx.x;
   const int lane = threadIdx.x;
   const size_t pp = static_cast<size_t>(p);
   const PageCodes codes =
-      load_page_codes(meta, dicts, trivs, pp, lane, s_meta, s_dict);
+      load_page_codes(meta, dicts, trivs, pp, lane, kStreams, sm);
 
   const int npf = npd[pp * 4 + 0];
   const int ndir = npd[pp * 4 + 1];
-  const Streams st{buf3, P, p, wc * 4};
+  const RoundCtx cx{LaneStream(Streams{buf3, P, p, wc * 4}, lane),
+                    LenTables(lane), lane, npf, ndir};
   const size_t row = pp * max_rounds * kStreams;
   uint8_t* pq = litq + pp * (S + 64);
   const int lit_cap = S + 64;
 
-  int bp = bp0[pp * kStreams + lane];
+  BitReader br;
+  br.init(cx.ls, bp0[pp * kStreams + lane]);
   Ring ring;
   int ncmds = 0, prev_tail = 0, qtail = 0, pos_tot = 0;
   int status = 0;
   bool done = false;
 
   for (int r = 0; r < max_rounds && !done; ++r) {  // all uniform
-    const RoundCmds c = decode_round_cmds(codes, st, lane, npf, ndir, bp,
-                                          ring);
+    const RoundCmds c = decode_round_cmds(codes, cx, br, ring);
     const size_t at = row + static_cast<size_t>(r) * kStreams + lane;
     ins_out[at] = c.insert_len;
     cpy_out[at] = c.copy_len;
@@ -79,7 +83,8 @@ __global__ void __launch_bounds__(kStreams)
       status |= kStOverrun;
       break;
     }
-    decode_round_literals(codes.lit, st, lane, rlit, bp, pq + qtail);
+    for (int j = lane; j < rlit; j += kStreams)
+      pq[qtail + j] = static_cast<uint8_t>(decode_literal(codes.lit, cx, br));
     qtail += rlit;
     pos_tot += c.covtot;
     done = c.k < kStreams;

@@ -14,9 +14,10 @@ tensor for comparison.
 The JAX path sizes its VMEM planes by command/chunk buckets and reruns a
 batch whose stats overflow them (mc_bucket_for, ch_bucket_for,
 fused_bounds, decode.py's _finish_fused_state and pump_finish hint). The
-kernel here keeps the output page and the literal queue in device-memory
-scratch sized for the worst case, decodes one page per warp, and so has no
-bucket to overflow and nothing to rerun.
+kernel here builds each page in shared memory (one block of two warps per
+page, the page's bytes in up to 128 KiB of dynamic shared memory), writes
+literals straight to their output positions, and so has no bucket to
+overflow, no literal queue and nothing to rerun.
 """
 from __future__ import annotations
 
@@ -107,17 +108,14 @@ def _decode_fused_cuda(buf3, npd, tables, page_size: int):
     wc, P, _ = buf3.shape
     dev = buf3.device
     out = torch.empty((P, page_size), dtype=torch.uint8, device=dev)
-    litq = torch.empty((P, page_size + LIT_PAD), dtype=torch.uint8,
-                       device=dev)
     ncmds = torch.empty(P, dtype=torch.int32, device=dev)
     status = torch.empty(P, dtype=torch.int32, device=dev)
-    _kernels.check_cuda_args(*ops, out, litq, ncmds, status)
+    _kernels.check_cuda_args(*ops, out, ncmds, status)
     lib = _kernels.library()
     rc = lib.blg_decode_pages(
         ops[0].data_ptr(), wc, P, *[t.data_ptr() for t in ops[1:]],
         page_size, D.max_cmds_for(page_size) // NBS, out.data_ptr(),
-        litq.data_ptr(), ncmds.data_ptr(), status.data_ptr(),
-        _kernels.stream_ptr(dev))
+        ncmds.data_ptr(), status.data_ptr(), _kernels.stream_ptr(dev))
     if rc != 0:
         raise RuntimeError(f"decode kernel launch failed (cudaError {rc})")
     _kernels.LAUNCHES["decode"] += 1

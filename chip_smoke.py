@@ -9,13 +9,19 @@ nvcc:
 It builds the port's kernels from brotlig_tpu_torch/csrc with nvcc and
 holds each to its plain torch version on a real 256-page batch (exact
 equality: the format is lossless): the tables kernel, the fused decode
-kernel, the phase-A kernel and the sweep kernel at every group width. It
-then drives the main path, brotlig_tpu_torch.decode(..., device="cuda"),
-on mixed-corpus containers through the fused route and through the
-two-phase route (sweep_cw 128 and 2048 on every container, 512 and 1024 on
-the 16 MiB one), byte-exactly, checks from the launch counts that each
-route went through its kernels, and times the kernels against their plain
-versions and both routes end to end. Progress goes to earlier lines; the
+kernel, the phase-A kernel and the sweep kernel at every group width.
+Kernel times are of raw launches (operands packed and outputs allocated
+once, CUDA events), so they hold no wrapper work. It times the fused and
+phase-A kernels on each page of that batch alone, prints the batch's
+chain lengths (commands, literals and rounds per page, and those of the
+page each kernel is slowest on), times both kernels at 256 and 512 pages
+a launch and at 32 and 128 KiB pages, then drives the main path,
+brotlig_tpu_torch.decode(..., device="cuda"), on mixed-corpus containers
+through the fused route and through the two-phase route (sweep_cw 128
+and 2048 on every container, 512 and 1024 on the 16 MiB one),
+byte-exactly, checks from the launch counts that each route went through
+its kernels, and times the kernels against their plain versions and both
+routes end to end. Progress goes to earlier lines; the
 line before the last is the card's name and power limit, the last line a
 JSON verdict. Any failure raises and exits non-zero; without a CUDA device
 it exits non-zero before printing any result.
@@ -125,6 +131,71 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def raw_launch(fn, args: list, dev):
+    """A function of no arguments that launches a kernel through its C
+    entry point, fn(*args, stream), with the tensors of args passed as
+    device pointers: no operand packing, allocation or check is left in a
+    timed launch. Raises on a launch error."""
+    import torch
+    from brotlig_tpu_torch import _kernels
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+            for a in args] + [_kernels.stream_ptr(dev)]
+
+    def run():
+        rc = fn(*ptrs)
+        if rc != 0:
+            raise RuntimeError(f"{fn.__name__} failed (cudaError {rc})")
+    run.operands = args     # the tensors live as long as the launcher
+    return run
+
+
+def tables_launch(buf):
+    """The tables kernel's raw launch on a staged batch."""
+    import torch
+    from brotlig_tpu_torch import _kernels
+    from brotlig_tpu_torch.ops.tables_kernel import ALPHABETS, NBS
+    wc, P, _ = buf.shape
+
+    def empty(n):
+        return torch.empty((P, n), dtype=torch.int32, device=buf.device)
+    return raw_launch(_kernels.library().blg_load_tables,
+                      [buf, wc, P, *[empty(A) for A in ALPHABETS], empty(3),
+                       empty(NBS)], buf.device)
+
+
+def round_launch(kernel: str, st, tabs, page: int):
+    """The raw launch of the fused decode kernel (kernel "decode") or the
+    phase-A kernel ("phase_a") on a staged batch and its tables, checked
+    once to flag no page."""
+    import torch
+    from brotlig_tpu_torch import _kernels
+    from brotlig_tpu_torch.ops import decode as D
+    from brotlig_tpu_torch.ops import decode_kernel as dk
+    ops = dk.kernel_operands(st.buf, st.npd, tabs, page)
+    wc, P, _ = st.buf.shape
+    dev = st.buf.device
+    mc = D.max_cmds_for(page)
+
+    def empty(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+    if kernel == "decode":
+        fn, outs = _kernels.library().blg_decode_pages, \
+            [empty(P, page, dtype=torch.uint8)]
+    else:
+        fn, outs = _kernels.library().blg_phase_a, \
+            [empty(P, mc), empty(P, mc), empty(P, mc),
+             empty(P, page + dk.LIT_PAD, dtype=torch.uint8)]
+    status = empty(P)
+    run = raw_launch(fn, [ops[0], wc, P, *ops[1:], page, mc // 32, *outs,
+                          empty(P), status], dev)
+    run()
+    torch.cuda.synchronize()
+    if int(status.abs().sum()):
+        raise AssertionError(f"{kernel} kernel flagged a page of a "
+                             f"{P} x {page} B batch")
+    return run
+
+
 def max_abs_err(got, want) -> int:
     return max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
                for g, w in zip(got, want))
@@ -184,7 +255,7 @@ def tables_phase(staged, n: dict) -> dict:
         raise AssertionError(f"tables kernel disagrees with plain: {err}")
     out_bytes = sum(g.numel() * 4 for g in got)
     return {"max_abs_err": err,
-            "ms": time_ms(lambda: tk.load_tables(staged.buf), REPS),
+            "ms": time_ms(tables_launch(staged.buf), REPS),
             "plain_ms": time_ms(lambda: tk.load_tables_plain(staged.buf), 1),
             **bound(n["table_words"] * 4 + out_bytes, 0)}
 
@@ -204,8 +275,7 @@ def decode_phase(staged, tabs, data: bytes, group, n: dict) -> dict:
         raise AssertionError("decode kernel flagged a valid page")
     check_pages(got[0], data, group, PAGE, "decode kernel")
     return {"max_abs_err": err,
-            "ms": time_ms(lambda: dk.decode_fused(staged.buf, staged.npd,
-                                                  tabs, PAGE), REPS),
+            "ms": time_ms(round_launch("decode", staged, tabs, PAGE), REPS),
             "plain_ms": time_ms(lambda: dk.decode_fused_plain(
                 staged.buf, staged.npd, tabs, PAGE), 1),
             **bound(n["compressed"] + n["pages"] * PAGE,
@@ -247,8 +317,8 @@ def phase_a_phase(staged, tabs):
     if int(got.status.abs().sum()) != 0:
         raise AssertionError("phase-A kernel flagged a valid page")
     return {"max_abs_err": err,
-            "ms": time_ms(lambda: pk.phase_a(staged.buf, staged.npd, tabs,
-                                             PAGE), REPS),
+            "ms": time_ms(round_launch("phase_a", staged, tabs, PAGE),
+                          REPS),
             "plain_ms": time_ms(lambda: pk.phase_a_plain(
                 staged.buf, staged.npd, tabs, PAGE), 1)}, got
 
@@ -257,6 +327,7 @@ def sweep_phases(a, data: bytes, group, n: dict) -> dict:
     """The sweep kernel at every group width vs its plain version, on the
     phase-A kernel's output of one batch; the middle stage timed apart."""
     import torch
+    from brotlig_tpu_torch import _kernels
     from brotlig_tpu_torch.ops import sweep_kernel as sk
     inp = sk.middle_stage(a.ncmds, a.litq, a.ins, a.cpy, a.dist, PAGE)
     want = sk.sweep_plain(a.ncmds, a.litq, a.ins, a.cpy, a.dist, PAGE)
@@ -267,6 +338,9 @@ def sweep_phases(a, data: bytes, group, n: dict) -> dict:
     middle_ms = time_ms(lambda: sk.middle_stage(a.ncmds, a.litq, a.ins,
                                                 a.cpy, a.dist, PAGE), REPS)
     res = {"middle_ms": middle_ms}
+    lib = _kernels.library()
+    P, nc = inp.st.shape
+    out = torch.empty((P, PAGE), dtype=torch.uint8, device=inp.st.device)
     for cw in SWEEP_CWS:
         got = sk.launch_sweep(inp, PAGE, cw)
         torch.cuda.synchronize()
@@ -275,11 +349,81 @@ def sweep_phases(a, data: bytes, group, n: dict) -> dict:
             raise AssertionError(f"sweep kernel cw {cw} disagrees with "
                                  f"plain: {err}")
         res[cw] = {"max_abs_err": err, "plain_ms": plain_ms,
-                   "ms": time_ms(lambda: sk.launch_sweep(inp, PAGE, cw),
-                                 REPS),
+                   "ms": time_ms(raw_launch(
+                       lib.blg_sweep, [*inp[:6], inp.litq.shape[1], P, nc,
+                                       PAGE, cw, out], out.device), REPS),
                    **bound(16 * n["cmds"] + n["lits"] + n["pages"] * PAGE,
                            n["pages"] * PAGE)}
     return res
+
+
+def chain_lengths(a, slowest: dict) -> dict:
+    """What makes a page's decode chain long, from one batch's phase-A
+    result: commands, literals and rounds per page, and those of the page
+    each kernel took longest on alone (slowest: kernel -> batch row)."""
+    import torch
+    ncmds = a.ncmds.long()
+    cid = torch.arange(a.ins.shape[1], device=ncmds.device)[None, :]
+    lits = (a.ins.long() * (cid < ncmds[:, None])).sum(dim=1)
+    rounds = ncmds // 32 + 1
+    return {"ncmds_max": int(ncmds.max()),
+            "ncmds_mean": float(ncmds.double().mean()),
+            "lits_max": int(lits.max()),
+            "lits_mean": float(lits.double().mean()),
+            "rounds_max": int(rounds.max()),
+            "rounds_mean": float(rounds.double().mean()),
+            "slowest_page": {k: {"row": i, "rounds": int(rounds[i]),
+                                 "cmds": int(ncmds[i]), "lits": int(lits[i]),
+                                 "lit_decodes_per_lane":
+                                     int((lits[i] + 31) // 32)}
+                             for k, i in slowest.items()}}
+
+
+def pages_alone(staged) -> dict:
+    """The fused decode and phase-A kernels timed on a batch and on each
+    of its pages alone, raw launches: per kernel the batch's time, the
+    slowest page's row and time, and the median page's time. A batch that
+    takes as long as its slowest page alone is bound by that page's serial
+    chain, not by the card's throughput."""
+    from brotlig_tpu_torch.ops import tables_kernel as tk
+    from brotlig_tpu_torch.state import Staged, tables_from_lengths
+    P = staged.buf.shape[1]
+    pages = []
+    for i in range(P):
+        one = Staged(staged.buf[:, i:i + 1].contiguous(),
+                     staged.npd[i:i + 1].contiguous())
+        pages.append((one, tables_from_lengths(*tk.load_tables(one.buf))))
+    tabs = tables_from_lengths(*tk.load_tables(staged.buf))
+    res = {}
+    for kernel in ("decode", "phase_a"):
+        alone = [time_ms(round_launch(kernel, one, t, PAGE), REPS)
+                 for one, t in pages]
+        row = max(range(P), key=alone.__getitem__)
+        res[kernel] = {"batch_ms": time_ms(round_launch(kernel, staged,
+                                                        tabs, PAGE), REPS),
+                       "slowest_row": row, "slowest_ms": alone[row],
+                       "median_ms": sorted(alone)[P // 2]}
+    return res
+
+
+def round_kernels_ms(blob: bytes, page: int, batch: int, dev,
+                     copies: int = 1) -> tuple:
+    """K2 and K4 timed on the first staged batch of `batch` pages of a
+    container, that batch repeated `copies` times in one launch: (pages,
+    K2 ms, K4 ms), raw launches. A measurement only; the main path keeps
+    batches of 256. Batches are size-sorted, so a larger batch holds other
+    pages; repeating one batch keeps the pages and changes only their
+    number."""
+    from brotlig_tpu_torch.format.headers import parse_container
+    from brotlig_tpu_torch.ops import tables_kernel as tk
+    from brotlig_tpu_torch.ops.decode import staged_batches
+    from brotlig_tpu_torch.state import Staged, tables_from_lengths
+    group, st = next(staged_batches(blob, parse_container(blob), batch, dev))
+    st = Staged(st.buf.repeat(1, copies, 1), st.npd.repeat(copies, 1))
+    tabs = tables_from_lengths(*tk.load_tables(st.buf))
+    return (copies * len(group),
+            time_ms(round_launch("decode", st, tabs, page), REPS),
+            time_ms(round_launch("phase_a", st, tabs, page), REPS))
 
 
 def batches_of(blob: bytes) -> int:
@@ -350,6 +494,15 @@ def main() -> int:
           f"[{gpu}]", flush=True)
     n = batch_counts(a, tabs, blob16, group)
     print(f"[smoke] batch: {n}", flush=True)
+    alone = pages_alone(staged)
+    for kernel, r in alone.items():
+        print(f"[smoke] {kernel} kernel, {len(group)}-page batch "
+              f"{r['batch_ms']:.4f} ms; each page alone: slowest (row "
+              f"{r['slowest_row']}) {r['slowest_ms']:.4f} ms, median "
+              f"{r['median_ms']:.4f} ms [{gpu}]", flush=True)
+    slowest = {k: r["slowest_row"] for k, r in alone.items()}
+    print(f"[smoke] chain lengths: {json.dumps(chain_lengths(a, slowest))}",
+          flush=True)
     k4.update(bound(n["compressed"] + 12 * n["cmds"] + n["lits"],
                     OPS_PER_SYMBOL * (n["cmds"] + n["lits"])))
     k1 = tables_phase(staged, n)
@@ -392,6 +545,22 @@ def main() -> int:
             batches_of(cases[names[2]][1]) != 2:
         raise AssertionError("the 64 MiB and 300-page containers must fill "
                              "several batches, and two")
+
+    # ---- K2 and K4 at 256 and 512 pages a launch; K2 at 32/128 KiB ----
+    for batch, copies, what in ((BATCH, 1, "its first batch"),
+                                (BATCH, 2, "that batch twice"),
+                                (2 * BATCH, 1, "its first 512 pages")):
+        pages, k2_ms, k4_ms = round_kernels_ms(cases[names[1]][1], PAGE,
+                                               batch, dev, copies)
+        print(f"[smoke] 64 MiB q1 container, {what}, {pages} pages a "
+              f"launch: decode kernel {k2_ms:.4f} ms, phase-A kernel "
+              f"{k4_ms:.4f} ms [{gpu}]", flush=True)
+    for name, page in ((names[3], 32768), (names[4], 131072)):
+        pages, k2_ms, k4_ms = round_kernels_ms(cases[name][1], page, BATCH,
+                                               dev)
+        print(f"[smoke] {name}, {pages} pages a launch: decode kernel "
+              f"{k2_ms:.4f} ms, phase-A kernel {k4_ms:.4f} ms [{gpu}]",
+              flush=True)
     all_batches = sum(batches_of(b) for _, b in cases.values())
 
     fused, _ = drive(cases, [(nm, {}) for nm in names], "fused")

@@ -77,7 +77,7 @@ def test_decode_pages_matches_jax(pages, jax_symbols):
     assert got.numpy().tobytes() == data
 
 
-def test_decode_step_from_jax_tables(pages):
+def test_decode_step_from_jax_tables(pages, jax_symbols):
     """The port's decode step fed the exact tables the JAX loader read
     (state.tables_from_jax), so a decode mismatch shows on its own."""
     data, blob, _ = pages
@@ -96,10 +96,10 @@ def test_decode_step_from_jax_tables(pages):
     assert int(status.abs().sum()) == 0
     for row, i in enumerate(group):
         assert out[row].numpy().tobytes() == data[i * PS:(i + 1) * PS]
-    # ncmds agrees with the JAX wavefront on the same pages
-    words, sizes = batch([pages[2][i] for i in group], PS)
-    np.testing.assert_array_equal(
-        ncmds.numpy(), np.asarray(JD._stage_symbols(words, sizes, PS, MC)[0]))
+    # ncmds agrees with the JAX wavefront on the same pages (the fixture's
+    # run over all of them, in container order)
+    np.testing.assert_array_equal(ncmds.numpy(),
+                                  np.asarray(jax_symbols[2][0])[group])
 
 
 def test_garbage_pages_flagged():

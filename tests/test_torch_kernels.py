@@ -6,6 +6,7 @@ card. Skips without a CUDA device; on a machine with one (and nvcc), run:
 (--noconftest: the suite's conftest configures JAX, which the GPU machine
 need not have). Every comparison is exact: the format fixes the bytes.
 """
+import numpy as np
 import pytest
 import torch
 
@@ -17,7 +18,7 @@ from brotlig_tpu_torch.ops.decode import VALID_SWEEP_CW, staged_batches
 from brotlig_tpu_torch.state import Staged, tables_from_lengths
 from test_roundtrip import make_data
 from test_torch_two_phase import (EDGE_CASES, edge_case, mixed_pages,
-                                  plain_phase_a)
+                                  plain_phase_a, stage)
 
 pytestmark = pytest.mark.cuda
 
@@ -53,10 +54,22 @@ def test_tables_kernel_matches_plain(cuda_dev, page_size):
         assert torch.equal(g.long(), w.long())
 
 
-@pytest.mark.parametrize("page_size", [32768, 65536, 131072])
-def test_decode_kernel_matches_plain(cuda_dev, page_size):
+def decode_case(case, dev):
+    """(page datas, staged batch, page size) of a container of the three
+    page sizes or of an edge input of tests/test_torch_two_phase.py."""
+    if case in EDGE_CASES:
+        data, comp, page_size = edge_case(case)
+        return [data], stage([comp], dev), page_size
+    page_size = int(case)
     data, blob = container(page_size)
-    group, st = first_batch(blob, cuda_dev)
+    group, st = first_batch(blob, dev)
+    return ([data[i * page_size:(i + 1) * page_size] for i in group], st,
+            page_size)
+
+
+@pytest.mark.parametrize("case", ("32768", "65536", "131072") + EDGE_CASES)
+def test_decode_kernel_matches_plain(cuda_dev, case):
+    datas, st, page_size = decode_case(case, cuda_dev)
     tabs = tables_from_lengths(*tables_kernel.load_tables_plain(st.buf))
     out, ncmds, status = decode_kernel.decode_fused(st.buf, st.npd, tabs,
                                                     page_size)
@@ -67,9 +80,8 @@ def test_decode_kernel_matches_plain(cuda_dev, page_size):
     assert torch.equal(ncmds.long(), p_ncmds.long())
     assert torch.equal(status, p_status)
     assert int(status.abs().sum()) == 0
-    for row, i in enumerate(group):
-        assert out[row].cpu().numpy().tobytes() == \
-            data[i * page_size:(i + 1) * page_size]
+    for row, d in enumerate(datas):
+        assert out[row, :len(d)].cpu().numpy().tobytes() == d
 
 
 def test_decode_stream_cuda(cuda_dev):
@@ -80,10 +92,12 @@ def test_decode_stream_cuda(cuda_dev):
     assert _kernels.LAUNCHES["decode"] == 1
 
 
-def test_garbage_pages_flagged_not_hung(cuda_dev):
+@pytest.mark.parametrize("S", [32768, 65536, 131072])
+def test_garbage_pages_flagged_not_hung(cuda_dev, S):
     """All-zero streams decode as trivial codes whose commands never end
-    the page: both versions must stop at their bounds and flag the page."""
-    P, wc, S = 4, 8, 32768
+    the page: the fused and the phase-A kernel, and the plain version,
+    must stop at their bounds and flag the page."""
+    P, wc = 4, 8
     st = Staged(torch.zeros((wc, P, 128), dtype=torch.int32, device=cuda_dev),
                 torch.zeros((P, 4), dtype=torch.int32, device=cuda_dev))
     got = tables_kernel.load_tables(st.buf)
@@ -92,8 +106,38 @@ def test_garbage_pages_flagged_not_hung(cuda_dev):
         assert torch.equal(g.long(), w.long())
     tabs = tables_from_lengths(*want)
     _, _, status = decode_kernel.decode_fused(st.buf, st.npd, tabs, S)
+    a = phase_a_kernel.phase_a(st.buf, st.npd, tabs, S)
+    torch.cuda.synchronize()
     _, _, p_status = decode_kernel.decode_fused_plain(st.buf, st.npd, tabs, S)
     assert bool((status != 0).all()) and bool((p_status != 0).all())
+    assert bool((a.status != 0).all())
+
+
+def test_kernels_at_512_pages(cuda_dev):
+    """One launch of each decode kernel over 512 pages (two waves of
+    blocks on the card): the fused kernel's pages and the phase-A
+    kernel's through the sweep equal the input."""
+    PS = 32768
+    kinds = ("structured", "repetitive", "structured", "zeros")
+    data = b"".join(make_data("text" if i % 16 == 0 else kinds[i % 4], PS,
+                              seed=i) for i in range(512))
+    blob = native.encode(data, page_size=PS, quality=1)
+    info = parse_container(blob)
+    assert len(info.compressed_page_indices()) >= 512
+    group, st = next(staged_batches(blob, info, 512, cuda_dev))
+    assert st.buf.shape[1] == 512
+    tabs = tables_from_lengths(*tables_kernel.load_tables(st.buf))
+    out, ncmds, status = decode_kernel.decode_fused(st.buf, st.npd, tabs, PS)
+    a = phase_a_kernel.phase_a(st.buf, st.npd, tabs, PS)
+    swept = sweep_kernel.sweep(a.ncmds, a.litq, a.ins, a.cpy, a.dist, PS,
+                               1024)
+    torch.cuda.synchronize()
+    assert int(status.abs().sum()) == 0 and int(a.status.abs().sum()) == 0
+    assert torch.equal(ncmds, a.ncmds)
+    want = torch.from_numpy(np.frombuffer(data, np.uint8).reshape(-1, PS))
+    want = want[torch.tensor(group)].to(cuda_dev)
+    assert torch.equal(out, want)
+    assert torch.equal(swept, want)
 
 
 def two_phase_case(name):
