@@ -113,7 +113,7 @@ def library():
         lib = ctypes.CDLL(LIB_PATH)
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.blg_load_tables.restype = i32
-        lib.blg_load_tables.argtypes = [vp, i32, i32, vp, vp, vp, vp, vp, vp]
+        lib.blg_load_tables.argtypes = [vp, i32, i32, vp, vp, vp, vp, vp]
         lib.blg_decode_pages.restype = i32
         lib.blg_decode_pages.argtypes = [vp, i32, i32, vp, vp, vp, vp, vp,
                                          i32, i32, vp, vp, vp, vp]
@@ -121,8 +121,8 @@ def library():
         lib.blg_phase_a.argtypes = [vp, i32, i32, vp, vp, vp, vp, vp, i32,
                                     i32, vp, vp, vp, vp, vp, vp, vp]
         lib.blg_sweep.restype = i32
-        lib.blg_sweep.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32,
-                                  i32, i32, vp, vp]
+        lib.blg_sweep.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
+                                  i32, vp, vp, vp]
         _lib = lib
         return _lib
 

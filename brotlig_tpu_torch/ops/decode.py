@@ -409,12 +409,15 @@ def decode_batch(staged, page_size: int, variant=None,
     [P])."""
     # these modules import this one
     from . import decode_kernel, phase_a_kernel, sweep_kernel
-    if variant == "xla":
+    if variant == "xla" or not staged.buf.is_cuda:
+        # the plain routes read the unpacked tables
         tabs = tables_from_lengths(
             *tables_kernel.load_tables_plain(staged.buf))
-        return decode_kernel.decode_fused_plain(staged.buf, staged.npd,
-                                                tabs, page_size)
-    tabs = tables_from_lengths(*tables_kernel.load_tables(staged.buf))
+    else:
+        tabs = tables_kernel.load_tables(staged.buf)  # packed, by the kernel
+    if variant == "xla":
+        return decode_kernel.decode_fused_plain(staged.buf, staged.npd, tabs,
+                                                page_size)
     if variant == "two_phase":
         a = phase_a_kernel.phase_a(staged.buf, staged.npd, tabs, page_size)
         out = sweep_kernel.sweep(a.ncmds, a.litq, a.ins, a.cpy, a.dist,

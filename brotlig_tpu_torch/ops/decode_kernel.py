@@ -27,17 +27,18 @@ from ..format import constants as C
 
 from .. import _kernels
 from . import decode as D
+from ..state import KernelTables, pack_tables
 from .tables import stream_view_from_interleaved
-from .tables_kernel import ALPHABETS, NBS
+from .tables_kernel import ALPHABETS, LEN_SLOTS, NBS
 
-LEN_SLOTS = C.HUFFMAN_NUM_CODE_LENGTH + 1       # limit/first/offset width
 LIT_PAD = 64            # literal-queue slack past the page (the kernels')
 
 
 def decode_fused(buf3: torch.Tensor, npd: torch.Tensor, tables,
                  page_size: int):
     """Decode a staged batch. buf3 [Wc, P, 128] int32, npd [P, 4] int32,
-    tables: state.Tables. Returns (out [P, page_size] uint8 with zeros past
+    tables: state.KernelTables or (the plain version's only form)
+    state.Tables. Returns (out [P, page_size] uint8 with zeros past
     each page's coverage, ncmds [P], status [P] int32 of decode.ST_* bits,
     0 for a clean page)."""
     if buf3.is_cuda:
@@ -69,35 +70,22 @@ def plain_symbols(buf3, npd, tables, page_size: int):
     return npostfix, ndirect, syms
 
 
-def _pack_tables(tables):
-    """state.Tables -> the kernel's table operands: meta [P, 3, 3, 17]
-    int32 (limit, first, offset per table), dicts [P, 728+544+256] int32
-    (the three canonical symbol dictionaries) and trivs [P, 3] int32."""
-    parts = (tables.icp, tables.dst, tables.lit)
-    meta = torch.stack([torch.stack([s["limit"], s["first"], s["offset"]],
-                                    dim=1) for s, _ in parts], dim=1)
-    if meta.shape[-1] != LEN_SLOTS:
-        raise ValueError(f"search arrays of width {meta.shape[-1]}")
-    dicts = torch.cat([s["symdict"] for s, _ in parts], dim=1)
-    trivs = torch.stack([t for _, t in parts], dim=1)
-    return (meta.to(torch.int32).contiguous(),
-            dicts.to(torch.int32).contiguous(),
-            trivs.to(torch.int32).contiguous())
-
-
 def kernel_operands(buf3, npd, tables, page_size: int):
-    """Check a staged batch and its tables and convert them to what the
-    fused and phase-A kernels take: (buf3, npd, bp, meta, dicts, trivs),
-    contiguous int32."""
+    """Check a staged batch and its tables (state.KernelTables, as the
+    tables kernel returns them, or state.Tables, packed here) and convert
+    them to what the fused and phase-A kernels take: (buf3, npd, bp, meta,
+    dicts, trivs), contiguous int32."""
     if buf3.dtype != torch.int32 or buf3.dim() != 3 or buf3.shape[2] != 128:
         raise ValueError(f"staged buffer {tuple(buf3.shape)} {buf3.dtype}")
     if page_size not in C.PAGE_SIZE_CHOICES:
         raise ValueError(f"page size {page_size}")
     P = buf3.shape[1]
     npd = npd.to(torch.int32).contiguous()
-    bp = tables.bp.to(torch.int32).contiguous()
-    meta, dicts, trivs = _pack_tables(tables)
+    if not isinstance(tables, KernelTables):
+        tables = pack_tables(tables)
+    meta, dicts, trivs, bp = tables
     if npd.shape != (P, 4) or bp.shape != (P, NBS) or \
+            meta.shape != (P, 3, 3, LEN_SLOTS) or trivs.shape != (P, 3) or \
             dicts.shape != (P, sum(ALPHABETS)):
         raise ValueError("staged batch and tables disagree on shape")
     return buf3.contiguous(), npd, bp, meta, dicts, trivs

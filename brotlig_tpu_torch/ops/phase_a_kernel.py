@@ -53,7 +53,8 @@ class PhaseA(NamedTuple):
 def phase_a(buf3: torch.Tensor, npd: torch.Tensor, tables,
             page_size: int) -> PhaseA:
     """Phase A of a staged batch: buf3 [Wc, P, 128] int32, npd [P, 4]
-    int32, tables: state.Tables."""
+    int32, tables: state.KernelTables or (the plain version's only form)
+    state.Tables."""
     if buf3.is_cuda:
         return _phase_a_cuda(buf3, npd, tables, page_size)
     if buf3.device.type == "cpu":

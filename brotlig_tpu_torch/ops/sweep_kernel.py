@@ -1,17 +1,19 @@
 """The chunk-sweep LZ77 kernel (csrc/sweep.cu) and its plain version: the
 second half of the two-phase decode route.
 
-Replaces brotlig_tpu/ops/pallas_decode.py::_phase_b_sweep: its XLA middle
-stage (commands past ncmds masked; output, copy and literal starts by
-exclusive cumsum; invalid commands moved to the start 1 << 29) becomes
-torch ops here, and its two kernel bodies, make_phase_b_kernel (128-byte
-groups) and make_phase_b_kernel_wide (512, 1024 or 2048 bytes), become one
-CUDA kernel templated on the group width cw.
+Replaces brotlig_tpu/ops/pallas_decode.py::_phase_b_sweep: its two kernel
+bodies, make_phase_b_kernel (128-byte groups) and make_phase_b_kernel_wide
+(512, 1024 or 2048 bytes), become one CUDA kernel templated on the group
+width cw, and its XLA middle stage (commands past ncmds masked; output,
+copy and literal starts by exclusive cumsum) becomes the kernel's
+prologue: the kernel takes the phase-A kernel's fields as they are, and
+nothing is read back to the host between the two kernels. middle_stage
+states that layout in torch; no route runs it.
 
-On CUDA tensors, sweep runs the middle stage and launches the kernel; on
-CPU tensors it runs the plain version (ops/decode.py's pointer-doubling
-_phase_b, which has no groups: cw does not change the bytes), which is
-also callable on CUDA tensors for comparison.
+On CUDA tensors, sweep launches the kernel; on CPU tensors it runs the
+plain version (ops/decode.py's pointer-doubling _phase_b, which has no
+groups: cw does not change the bytes), which is also callable on CUDA
+tensors for comparison.
 """
 from __future__ import annotations
 
@@ -31,8 +33,7 @@ def sweep(ncmds, litq, ins, cpy, dist, page_size: int, cw: int = 1024):
     Returns out [P, page_size] uint8, zero past each page's coverage."""
     D._check_opts(None, cw)
     if ins.is_cuda:
-        return launch_sweep(middle_stage(ncmds, litq, ins, cpy, dist,
-                                         page_size), page_size, cw)
+        return launch_sweep(ncmds, litq, ins, cpy, dist, page_size, cw)
     if ins.device.type == "cpu":
         return sweep_plain(ncmds, litq, ins, cpy, dist, page_size)
     raise ValueError(f"no sweep route for device {ins.device}")
@@ -53,7 +54,7 @@ def sweep_plain(ncmds, litq, ins, cpy, dist, page_size: int):
 
 
 class SweepInputs(NamedTuple):
-    """What the sweep kernel reads (the middle stage's result): st, cst,
+    """The layout the sweep kernel's prologue builds: st, cst,
     lst, dist [P, n] int32 output start, copy start, literal start and
     absolute distance of the first n commands (n: the batch's peak
     ncmds), st = FAR_START from ncmds on; total [P] int32 bytes covered;
@@ -69,7 +70,8 @@ class SweepInputs(NamedTuple):
 def middle_stage(ncmds, litq, ins, cpy, dist, page_size: int) -> SweepInputs:
     """Mask commands past ncmds and lay out their starts by exclusive
     cumsum (_phase_b_sweep's XLA middle stage, pallas_decode.py:1439-1453),
-    over the batch's longest command list (one host read)."""
+    over the batch's longest command list (one host read): the plain
+    statement of what the sweep kernel's prologue computes per page."""
     P, N = ins.shape
     n = max(1, min(N, int(ncmds.max()))) if P else 1
     valid, (ins, cpy, dist) = _masked(ncmds, ins, cpy, dist, n)
@@ -84,17 +86,24 @@ def middle_stage(ncmds, litq, ins, cpy, dist, page_size: int) -> SweepInputs:
                        litq.contiguous())
 
 
-def launch_sweep(inp: SweepInputs, page_size: int, cw: int):
-    """One launch of the sweep kernel at group width cw."""
-    P, n = inp.st.shape
-    if page_size % cw or page_size % 16 or inp.litq.shape[0] != P:
+def launch_sweep(ncmds, litq, ins, cpy, dist, page_size: int, cw: int):
+    """One launch of the sweep kernel at group width cw on phase-A fields
+    (PhaseA's ncmds [P], litq [P, L] uint8, ins/cpy/dist [P, N])."""
+    P, N = ins.shape
+    if page_size % cw or page_size % 16 or litq.shape[0] != P or \
+            ncmds.shape != (P,) or cpy.shape != (P, N) or \
+            dist.shape != (P, N):
         raise ValueError(f"sweep of {P} pages of {page_size} B at cw {cw}")
-    out = torch.empty((P, page_size), dtype=torch.uint8,
-                      device=inp.st.device)
-    _kernels.check_cuda_args(*inp, out)
+    dev = ins.device
+    ops = [x.to(torch.int32).contiguous() for x in (ncmds, ins, cpy, dist)]
+    litq = litq.contiguous()
+    out = torch.empty((P, page_size), dtype=torch.uint8, device=dev)
+    scratch = torch.empty((P, N, 4), dtype=torch.int32, device=dev)
+    _kernels.check_cuda_args(*ops, litq, scratch, out)
     rc = _kernels.library().blg_sweep(
-        *[t.data_ptr() for t in inp[:6]], inp.litq.shape[1], P, n,
-        page_size, cw, out.data_ptr(), _kernels.stream_ptr(out.device))
+        *[x.data_ptr() for x in ops], litq.data_ptr(), litq.shape[1], P, N,
+        page_size, cw, scratch.data_ptr(), out.data_ptr(),
+        _kernels.stream_ptr(dev))
     if rc != 0:
         raise RuntimeError(f"sweep kernel launch failed (cudaError {rc})")
     _kernels.LAUNCHES["sweep"] += 1

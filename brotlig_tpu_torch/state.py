@@ -36,6 +36,19 @@ class Tables(NamedTuple):
     lit: tuple
 
 
+class KernelTables(NamedTuple):
+    """Per-page decode tables as the fused decode and phase-A kernels read
+    them, all int32: meta [P, 3, 3, 17] (limit, first, offset of each of
+    the three codes), dicts [P, 728+544+256] (the canonical symbol
+    dictionaries, side by side), trivs [P, 3] (trivial symbol or -1) and
+    bp [P, 32] (each sub-stream's cursor past the tables). The tables
+    kernel writes them; pack_tables makes them from Tables."""
+    meta: torch.Tensor
+    dicts: torch.Tensor
+    trivs: torch.Tensor
+    bp: torch.Tensor
+
+
 def staged_from_numpy(buf3_np: np.ndarray, npd_np: np.ndarray,
                       device) -> Staged:
     """native.stage_pages' (buf3 [Wc, P, 128], npd [P, 4]) -> Staged on
@@ -55,12 +68,26 @@ def _search(lengths):
 def tables_from_lengths(lengths_icp, lengths_dst, lengths_lit, trivs,
                         bp) -> Tables:
     """Code lengths [P, A] x 3, trivs [P, 3] and stream-local cursors
-    [P, 32] (what tables_kernel.load_tables returns) -> Tables."""
+    [P, 32] (what tables_kernel.load_tables_plain returns) -> Tables."""
     trivs = trivs.to(torch.int64)
     return Tables(bp.to(torch.int64),
                   (_search(lengths_icp), trivs[:, 0]),
                   (_search(lengths_dst), trivs[:, 1]),
                   (_search(lengths_lit), trivs[:, 2]))
+
+
+def pack_tables(tables: Tables) -> KernelTables:
+    """Tables -> KernelTables: the search arrays stacked and the three
+    dictionaries concatenated, contiguous int32."""
+    parts = (tables.icp, tables.dst, tables.lit)
+    meta = torch.stack([torch.stack([s["limit"], s["first"], s["offset"]],
+                                    dim=1) for s, _ in parts], dim=1)
+    if meta.shape[-1] != C.HUFFMAN_NUM_CODE_LENGTH + 1:
+        raise ValueError(f"search arrays of width {meta.shape[-1]}")
+    dicts = torch.cat([s["symdict"] for s, _ in parts], dim=1)
+    trivs = torch.stack([t for _, t in parts], dim=1)
+    return KernelTables(*(x.to(torch.int32).contiguous()
+                          for x in (meta, dicts, trivs, tables.bp)))
 
 
 def tables_from_jax(lengths_icp, lengths_dst, lengths_lit, trivs,

@@ -39,6 +39,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PAGE = 64 * 1024
 BATCH = 256
 REPS = 10
+HOLD_CYCLES = 2_000_000     # time_ms's spin before the timed launches
 SWEEP_CWS = (128, 512, 1024, 2048)
 # H100 SXM datasheet peaks: HBM bytes/s, and the float32
 # rate outside the tensor cores, used as an upper bound on the integer
@@ -118,11 +119,15 @@ def corpus(n_pages: int, page: int = PAGE) -> bytes:
 # ---------------------------------------------------------------------------
 
 def time_ms(fn, reps: int) -> float:
-    """Mean device time of fn over reps runs, by CUDA events."""
+    """Mean device time of fn over reps runs, by CUDA events. The card
+    first spins for about a millisecond, so the launches queue up behind
+    it: a kernel shorter than the host's launch interval is timed, not
+    the interval."""
     import torch
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -153,14 +158,11 @@ def tables_launch(buf):
     """The tables kernel's raw launch on a staged batch."""
     import torch
     from brotlig_tpu_torch import _kernels
-    from brotlig_tpu_torch.ops.tables_kernel import ALPHABETS, NBS
+    from brotlig_tpu_torch.ops import tables_kernel as tk
     wc, P, _ = buf.shape
-
-    def empty(n):
-        return torch.empty((P, n), dtype=torch.int32, device=buf.device)
+    outs = [torch.empty_like(t) for t in tk.load_tables(buf)]
     return raw_launch(_kernels.library().blg_load_tables,
-                      [buf, wc, P, *[empty(A) for A in ALPHABETS], empty(3),
-                       empty(NBS)], buf.device)
+                      [buf, wc, P, *outs], buf.device)
 
 
 def round_launch(kernel: str, st, tabs, page: int):
@@ -243,20 +245,33 @@ def batch_counts(a, tabs, blob: bytes, group) -> dict:
             "lits": int((a.ins.long() * (cid < ncmds[:, None])).sum())}
 
 
-def tables_phase(staged, n: dict) -> dict:
-    """Tables kernel vs its plain version on one staged batch."""
+def tables_errors(buf) -> int:
+    """The tables kernel against its plain version on a staged batch:
+    the largest difference over the packed operands (meta, dicts, trivs,
+    bp)."""
     import torch
     from brotlig_tpu_torch.ops import tables_kernel as tk
-    got = tk.load_tables(staged.buf)
+    got = tk.load_tables(buf)
     torch.cuda.synchronize()
-    want = tk.load_tables_plain(staged.buf)
-    err = max_abs_err(got, want)
+    return max_abs_err(got, tk.tables_plain(buf))
+
+
+def tables_phase(staged, n: dict) -> dict:
+    """Tables kernel vs its plain version on one staged batch; beside it,
+    the torch table build the kernel took over (build_search on the three
+    codes and the pack, on the card, from lengths already there)."""
+    from brotlig_tpu_torch.ops import tables_kernel as tk
+    from brotlig_tpu_torch.state import pack_tables, tables_from_lengths
+    err = tables_errors(staged.buf)
     if err != 0:
         raise AssertionError(f"tables kernel disagrees with plain: {err}")
-    out_bytes = sum(g.numel() * 4 for g in got)
+    out_bytes = sum(g.numel() * 4 for g in tk.load_tables(staged.buf))
+    lengths = tk.load_tables_plain(staged.buf)
     return {"max_abs_err": err,
             "ms": time_ms(tables_launch(staged.buf), REPS),
-            "plain_ms": time_ms(lambda: tk.load_tables_plain(staged.buf), 1),
+            "plain_ms": time_ms(lambda: tk.tables_plain(staged.buf), 1),
+            "torch_build_ms": time_ms(
+                lambda: pack_tables(tables_from_lengths(*lengths)), REPS),
             **bound(n["table_words"] * 4 + out_bytes, 0)}
 
 
@@ -323,13 +338,27 @@ def phase_a_phase(staged, tabs):
                 staged.buf, staged.npd, tabs, PAGE), 1)}, got
 
 
-def sweep_phases(a, data: bytes, group, n: dict) -> dict:
-    """The sweep kernel at every group width vs its plain version, on the
-    phase-A kernel's output of one batch; the middle stage timed apart."""
+def sweep_launch(a, cw: int):
+    """The sweep kernel's raw launch at group width cw on phase-A fields
+    (a PhaseA, or some of its rows)."""
     import torch
     from brotlig_tpu_torch import _kernels
+    P, nc = a.ins.shape
+    dev = a.ins.device
+    out = torch.empty((P, PAGE), dtype=torch.uint8, device=dev)
+    scratch = torch.empty((P, nc, 4), dtype=torch.int32, device=dev)
+    return raw_launch(_kernels.library().blg_sweep,
+                      [a.ncmds, a.ins, a.cpy, a.dist, a.litq,
+                       a.litq.shape[1], P, nc, PAGE, cw, scratch, out], dev)
+
+
+def sweep_phases(a, data: bytes, group, n: dict) -> dict:
+    """The sweep kernel at every group width vs its plain version, on the
+    phase-A kernel's output of one batch (raw launches, the kernel's
+    prologue included); beside it, the torch middle stage the prologue
+    took over, timed on its own."""
+    import torch
     from brotlig_tpu_torch.ops import sweep_kernel as sk
-    inp = sk.middle_stage(a.ncmds, a.litq, a.ins, a.cpy, a.dist, PAGE)
     want = sk.sweep_plain(a.ncmds, a.litq, a.ins, a.cpy, a.dist, PAGE)
     torch.cuda.synchronize()
     check_pages(want, data, group, PAGE, "plain sweep")
@@ -338,22 +367,18 @@ def sweep_phases(a, data: bytes, group, n: dict) -> dict:
     middle_ms = time_ms(lambda: sk.middle_stage(a.ncmds, a.litq, a.ins,
                                                 a.cpy, a.dist, PAGE), REPS)
     res = {"middle_ms": middle_ms}
-    lib = _kernels.library()
-    P, nc = inp.st.shape
-    out = torch.empty((P, PAGE), dtype=torch.uint8, device=inp.st.device)
+    P = a.ins.shape[0]
     for cw in SWEEP_CWS:
-        got = sk.launch_sweep(inp, PAGE, cw)
+        got = sk.sweep(a.ncmds, a.litq, a.ins, a.cpy, a.dist, PAGE, cw)
         torch.cuda.synchronize()
         err = max_abs_err((got,), (want,))
         if err != 0:
             raise AssertionError(f"sweep kernel cw {cw} disagrees with "
                                  f"plain: {err}")
         res[cw] = {"max_abs_err": err, "plain_ms": plain_ms,
-                   "ms": time_ms(raw_launch(
-                       lib.blg_sweep, [*inp[:6], inp.litq.shape[1], P, nc,
-                                       PAGE, cw, out], out.device), REPS),
-                   **bound(16 * n["cmds"] + n["lits"] + n["pages"] * PAGE,
-                           n["pages"] * PAGE)}
+                   "ms": time_ms(sweep_launch(a, cw), REPS),
+                   **bound(4 * P + 12 * n["cmds"] + n["lits"]
+                           + n["pages"] * PAGE, n["pages"] * PAGE)}
     return res
 
 
@@ -379,28 +404,39 @@ def chain_lengths(a, slowest: dict) -> dict:
                              for k, i in slowest.items()}}
 
 
-def pages_alone(staged) -> dict:
-    """The fused decode and phase-A kernels timed on a batch and on each
-    of its pages alone, raw launches: per kernel the batch's time, the
-    slowest page's row and time, and the median page's time. A batch that
-    takes as long as its slowest page alone is bound by that page's serial
+def pages_alone(staged, a) -> dict:
+    """The tables, fused decode and phase-A kernels and the sweep (cw 128
+    and 1024, on the phase-A result a) timed on a batch and on each of its
+    pages alone, raw launches: per kernel the batch's time, the slowest
+    page's row and time, and the median page's time. A batch that takes
+    as long as its slowest page alone is bound by that page's serial
     chain, not by the card's throughput."""
     from brotlig_tpu_torch.ops import tables_kernel as tk
-    from brotlig_tpu_torch.state import Staged, tables_from_lengths
+    from brotlig_tpu_torch.state import Staged
+
+    def tables(st):
+        return tables_launch(st.buf)
+
+    def rounds(kernel):
+        return lambda st: round_launch(kernel, st, tk.load_tables(st.buf),
+                                       PAGE)
+
+    def sweep(cw):
+        return lambda rows: sweep_launch(rows, cw)
     P = staged.buf.shape[1]
-    pages = []
-    for i in range(P):
-        one = Staged(staged.buf[:, i:i + 1].contiguous(),
-                     staged.npd[i:i + 1].contiguous())
-        pages.append((one, tables_from_lengths(*tk.load_tables(one.buf))))
-    tabs = tables_from_lengths(*tk.load_tables(staged.buf))
+    pages = [Staged(staged.buf[:, i:i + 1].contiguous(),
+                    staged.npd[i:i + 1].contiguous()) for i in range(P)]
+    rows = [type(a)(*[x[i:i + 1] for x in a]) for i in range(P)]
     res = {}
-    for kernel in ("decode", "phase_a"):
-        alone = [time_ms(round_launch(kernel, one, t, PAGE), REPS)
-                 for one, t in pages]
+    for kernel, launch, whole, parts in (
+            ("tables", tables, staged, pages),
+            ("decode", rounds("decode"), staged, pages),
+            ("phase_a", rounds("phase_a"), staged, pages),
+            ("sweep_cw128", sweep(128), a, rows),
+            ("sweep_cw1024", sweep(1024), a, rows)):
+        alone = [time_ms(launch(one), REPS) for one in parts]
         row = max(range(P), key=alone.__getitem__)
-        res[kernel] = {"batch_ms": time_ms(round_launch(kernel, staged,
-                                                        tabs, PAGE), REPS),
+        res[kernel] = {"batch_ms": time_ms(launch(whole), REPS),
                        "slowest_row": row, "slowest_ms": alone[row],
                        "median_ms": sorted(alone)[P // 2]}
     return res
@@ -417,10 +453,10 @@ def round_kernels_ms(blob: bytes, page: int, batch: int, dev,
     from brotlig_tpu_torch.format.headers import parse_container
     from brotlig_tpu_torch.ops import tables_kernel as tk
     from brotlig_tpu_torch.ops.decode import staged_batches
-    from brotlig_tpu_torch.state import Staged, tables_from_lengths
+    from brotlig_tpu_torch.state import Staged
     group, st = next(staged_batches(blob, parse_container(blob), batch, dev))
     st = Staged(st.buf.repeat(1, copies, 1), st.npd.repeat(copies, 1))
-    tabs = tables_from_lengths(*tk.load_tables(st.buf))
+    tabs = tk.load_tables(st.buf)
     return (copies * len(group),
             time_ms(round_launch("decode", st, tabs, page), REPS),
             time_ms(round_launch("phase_a", st, tabs, page), REPS))
@@ -435,18 +471,37 @@ def batches_of(blob: bytes) -> int:
 def drive(cases, runs, what: str) -> tuple:
     """The main path: decode every (container, options) pair of runs on
     the card byte-exactly, with the launch counts set to 0 just before and
-    read just after. Returns (counts, sweep counts by width)."""
+    read just after. Returns (counts, sweep counts by width, calls of the
+    torch work the kernels took over: the middle stage and the search
+    build, which the CUDA routes must not make)."""
     import brotlig_tpu_torch
-    from brotlig_tpu_torch import _kernels
-    _kernels.reset_launches()
-    for name, opts in runs:
-        data, blob = cases[name]
-        if brotlig_tpu_torch.decode(blob, device="cuda", **opts) != data:
-            raise AssertionError(f"{name} {opts}: decode differs from the "
-                                 "input")
-        print(f"[smoke] {what} decode ok: {name} {opts} "
-              f"({batches_of(blob)} batches)", flush=True)
-    return dict(_kernels.LAUNCHES), dict(_kernels.SWEEP_LAUNCHES)
+    from brotlig_tpu_torch import _kernels, state
+    from brotlig_tpu_torch.ops import sweep_kernel as sk
+    calls = {"middle_stage": 0, "build_search": 0}
+    saved = {"middle_stage": (sk, sk.middle_stage),
+             "build_search": (state, state.build_search)}
+
+    def counted(name, fn):
+        def run(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return run
+    for name, (mod, fn) in saved.items():
+        setattr(mod, name, counted(name, fn))
+    try:
+        _kernels.reset_launches()
+        for name, opts in runs:
+            data, blob = cases[name]
+            if brotlig_tpu_torch.decode(blob, device="cuda", **opts) != data:
+                raise AssertionError(f"{name} {opts}: decode differs from "
+                                     "the input")
+            print(f"[smoke] {what} decode ok: {name} {opts} "
+                  f"({batches_of(blob)} batches)", flush=True)
+        launches = dict(_kernels.LAUNCHES), dict(_kernels.SWEEP_LAUNCHES)
+    finally:
+        for name, (mod, fn) in saved.items():
+            setattr(mod, name, fn)
+    return (*launches, calls)
 
 
 def main() -> int:
@@ -494,7 +549,7 @@ def main() -> int:
           f"[{gpu}]", flush=True)
     n = batch_counts(a, tabs, blob16, group)
     print(f"[smoke] batch: {n}", flush=True)
-    alone = pages_alone(staged)
+    alone = pages_alone(staged, a)
     for kernel, r in alone.items():
         print(f"[smoke] {kernel} kernel, {len(group)}-page batch "
               f"{r['batch_ms']:.4f} ms; each page alone: slowest (row "
@@ -509,6 +564,9 @@ def main() -> int:
     print(f"[smoke] tables kernel == plain (tolerance 0) on {len(group)} "
           f"pages; kernel {k1['ms']:.4f} ms, plain {k1['plain_ms']:.2f} ms "
           f"[{gpu}]", flush=True)
+    print(f"[smoke] torch table build the kernel took over (build_search "
+          f"x 3 + pack, on the card): {k1.pop('torch_build_ms'):.4f} ms "
+          f"[{gpu}]", flush=True)
     k2 = decode_phase(staged, tabs, data16, group, n)
     print(f"[smoke] decode kernel == plain == input (tolerance 0) on "
           f"{len(group)} pages; kernel {k2['ms']:.3f} ms, plain "
@@ -518,7 +576,14 @@ def main() -> int:
         print(f"[smoke] sweep kernel cw {cw} == plain == input (tolerance "
               f"0); kernel {k5[cw]['ms']:.4f} ms, plain "
               f"{k5[cw]['plain_ms']:.2f} ms [{gpu}]", flush=True)
-    print(f"[smoke] sweep middle stage (torch) {k5['middle_ms']:.4f} ms "
+    print(f"[smoke] torch middle stage the sweep's prologue took over "
+          f"{k5['middle_ms']:.4f} ms [{gpu}]", flush=True)
+    route = {"fused": k1["ms"] + k2["ms"],
+             **{f"two_phase cw {cw}": k1["ms"] + k4["ms"] + k5[cw]["ms"]
+                for cw in SWEEP_CWS}}
+    print(f"[smoke] device time a {len(group)}-page batch by route (raw "
+          f"launches, tables kernel included): "
+          f"{json.dumps({k: round(v, 4) for k, v in route.items()})} "
           f"[{gpu}]", flush=True)
     del a
 
@@ -556,6 +621,12 @@ def main() -> int:
               f"launch: decode kernel {k2_ms:.4f} ms, phase-A kernel "
               f"{k4_ms:.4f} ms [{gpu}]", flush=True)
     for name, page in ((names[3], 32768), (names[4], 131072)):
+        err = tables_errors(first_batch(cases[name][1], dev)[1].buf)
+        if err != 0:
+            raise AssertionError(f"tables kernel disagrees with plain on "
+                                 f"{name}: {err}")
+        print(f"[smoke] tables kernel == plain (tolerance 0) on {name}",
+              flush=True)
         pages, k2_ms, k4_ms = round_kernels_ms(cases[name][1], page, BATCH,
                                                dev)
         print(f"[smoke] {name}, {pages} pages a launch: decode kernel "
@@ -563,34 +634,34 @@ def main() -> int:
               flush=True)
     all_batches = sum(batches_of(b) for _, b in cases.values())
 
-    fused, _ = drive(cases, [(nm, {}) for nm in names], "fused")
+    fused, _, torch_calls = drive(cases, [(nm, {}) for nm in names],
+                                  "fused")
     print(f"[smoke] launches on the fused route: {fused} "
-          f"(>= {all_batches} batches)", flush=True)
-    for k in ("tables", "decode"):
-        if fused[k] < all_batches:
-            raise AssertionError(f"kernel {k} launched {fused[k]} times, "
-                                 f"fewer than the {all_batches} batches")
+          f"(once a batch: {all_batches} batches); torch calls "
+          f"{torch_calls}", flush=True)
+    if fused != {"tables": all_batches, "decode": all_batches,
+                 "phase_a": 0, "sweep": 0} or any(torch_calls.values()):
+        raise AssertionError("the fused route did not launch its kernels "
+                             "once a batch, or ran torch table work")
 
     runs = [(nm, {"variant": "two_phase", "sweep_cw": cw})
             for cw in (128, 2048) for nm in names]
     runs += [(names[0], {"variant": "two_phase", "sweep_cw": cw})
              for cw in (512, 1024)]
-    two, by_cw = drive(cases, runs, "two-phase")
+    two, by_cw, torch_calls = drive(cases, runs, "two-phase")
     want_cw = {cw: all_batches if cw in (128, 2048)
                else batches_of(blob16) for cw in SWEEP_CWS}
-    print(f"[smoke] launches on the two-phase route: {two}, sweep by "
-          f"width {by_cw} (>= {want_cw} batches)", flush=True)
     two_batches = sum(want_cw.values())
-    for k in ("tables", "phase_a", "sweep"):
-        if two[k] < two_batches:
-            raise AssertionError(f"kernel {k} launched {two[k]} times, "
-                                 f"fewer than the {two_batches} batches")
-    for cw, want in want_cw.items():
-        if by_cw[cw] < want:
-            raise AssertionError(f"sweep cw {cw} launched {by_cw[cw]} "
-                                 f"times, fewer than {want} batches")
-    if two["decode"] != 0:
-        raise AssertionError("the two-phase route launched the fused kernel")
+    print(f"[smoke] launches on the two-phase route: {two}, sweep by "
+          f"width {by_cw} (once a batch: {two_batches} batches, by width "
+          f"{want_cw}); torch calls {torch_calls}", flush=True)
+    if two != {"tables": two_batches, "decode": 0, "phase_a": two_batches,
+               "sweep": two_batches} or by_cw != want_cw:
+        raise AssertionError("the two-phase route did not launch its "
+                             "kernels once a batch")
+    if any(torch_calls.values()):
+        raise AssertionError(f"the two-phase route ran torch table work or "
+                             f"the middle stage: {torch_calls}")
     if native.decode(blob16) != data16:
         raise AssertionError("native CPU decoder disagrees with the input")
 

@@ -23,6 +23,7 @@ from brotlig_tpu_torch.ops.decode import decode_stream, staged_batches
 from brotlig_tpu_torch.state import (Staged, tables_from_jax,
                                      tables_from_lengths)
 from test_ops_decode import batch
+from test_torch_two_phase import torch_one_thread  # noqa: F401 (autouse)
 from test_roundtrip import make_data
 
 PS = 32768
@@ -107,7 +108,7 @@ def test_garbage_pages_flagged():
     the plain decode stops at its bounds and flags every page."""
     st = Staged(torch.zeros((8, 3, 128), dtype=torch.int32),
                 torch.zeros((3, 4), dtype=torch.int32))
-    tabs = tables_from_lengths(*tables_kernel.load_tables(st.buf))
+    tabs = tables_from_lengths(*tables_kernel.load_tables_plain(st.buf))
     _, _, status = decode_kernel.decode_fused(st.buf, st.npd, tabs, PS)
     assert bool((status & TD.ST_OVERRUN != 0).all())
 

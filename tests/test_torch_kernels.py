@@ -10,8 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from brotlig_tpu_torch import _kernels, decode, native
+from brotlig_tpu_torch import _kernels, decode, native, state
 from brotlig_tpu_torch.format.headers import parse_container
+from brotlig_tpu_torch.ops import decode as decode_mod
 from brotlig_tpu_torch.ops import (decode_kernel, phase_a_kernel,
                                    sweep_kernel, tables_kernel)
 from brotlig_tpu_torch.ops.decode import VALID_SWEEP_CW, staged_batches
@@ -44,16 +45,6 @@ def first_batch(blob, dev):
     return group, staged
 
 
-@pytest.mark.parametrize("page_size", [32768, 65536, 131072])
-def test_tables_kernel_matches_plain(cuda_dev, page_size):
-    _, blob = container(page_size)
-    _, st = first_batch(blob, cuda_dev)
-    got = tables_kernel.load_tables(st.buf)
-    want = tables_kernel.load_tables_plain(st.buf)
-    for g, w in zip(got, want):
-        assert torch.equal(g.long(), w.long())
-
-
 def decode_case(case, dev):
     """(page datas, staged batch, page size) of a container of the three
     page sizes or of an edge input of tests/test_torch_two_phase.py."""
@@ -65,6 +56,22 @@ def decode_case(case, dev):
     group, st = first_batch(blob, dev)
     return ([data[i * page_size:(i + 1) * page_size] for i in group], st,
             page_size)
+
+
+def assert_tables_equal(buf3):
+    """The tables kernel's packed operands equal the plain version's."""
+    got = tables_kernel.load_tables(buf3)
+    torch.cuda.synchronize()
+    want = tables_kernel.tables_plain(buf3)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and torch.equal(g, w)
+    return got
+
+
+@pytest.mark.parametrize("case", ("32768", "65536", "131072") + EDGE_CASES)
+def test_tables_kernel_matches_plain(cuda_dev, case):
+    _, st, _ = decode_case(case, cuda_dev)
+    assert_tables_equal(st.buf)
 
 
 @pytest.mark.parametrize("case", ("32768", "65536", "131072") + EDGE_CASES)
@@ -84,7 +91,17 @@ def test_decode_kernel_matches_plain(cuda_dev, case):
         assert out[row, :len(d)].cpu().numpy().tobytes() == d
 
 
-def test_decode_stream_cuda(cuda_dev):
+def no_torch_table_build(monkeypatch):
+    """Make the torch search build raise: on the card the tables kernel
+    builds the search arrays itself."""
+    def banned(*args, **kwargs):
+        raise AssertionError("the CUDA route ran the torch table build")
+    monkeypatch.setattr(state, "build_search", banned)
+    monkeypatch.setattr(decode_mod, "tables_from_lengths", banned)
+
+
+def test_decode_stream_cuda(cuda_dev, monkeypatch):
+    no_torch_table_build(monkeypatch)
     data, blob = container(65536)
     _kernels.reset_launches()
     assert decode(blob, device="cuda") == data
@@ -100,13 +117,10 @@ def test_garbage_pages_flagged_not_hung(cuda_dev, S):
     P, wc = 4, 8
     st = Staged(torch.zeros((wc, P, 128), dtype=torch.int32, device=cuda_dev),
                 torch.zeros((P, 4), dtype=torch.int32, device=cuda_dev))
-    got = tables_kernel.load_tables(st.buf)
-    want = tables_kernel.load_tables_plain(st.buf)
-    for g, w in zip(got, want):
-        assert torch.equal(g.long(), w.long())
-    tabs = tables_from_lengths(*want)
-    _, _, status = decode_kernel.decode_fused(st.buf, st.npd, tabs, S)
-    a = phase_a_kernel.phase_a(st.buf, st.npd, tabs, S)
+    got = assert_tables_equal(st.buf)
+    tabs = tables_from_lengths(*tables_kernel.load_tables_plain(st.buf))
+    _, _, status = decode_kernel.decode_fused(st.buf, st.npd, got, S)
+    a = phase_a_kernel.phase_a(st.buf, st.npd, got, S)
     torch.cuda.synchronize()
     _, _, p_status = decode_kernel.decode_fused_plain(st.buf, st.npd, tabs, S)
     assert bool((status != 0).all()) and bool((p_status != 0).all())
@@ -114,9 +128,10 @@ def test_garbage_pages_flagged_not_hung(cuda_dev, S):
 
 
 def test_kernels_at_512_pages(cuda_dev):
-    """One launch of each decode kernel over 512 pages (two waves of
-    blocks on the card): the fused kernel's pages and the phase-A
-    kernel's through the sweep equal the input."""
+    """One launch of each kernel over 512 pages (two waves of blocks on
+    the card): the tables kernel equals its plain version, the fused
+    kernel's pages and the phase-A kernel's through the sweep at every cw
+    equal the input."""
     PS = 32768
     kinds = ("structured", "repetitive", "structured", "zeros")
     data = b"".join(make_data("text" if i % 16 == 0 else kinds[i % 4], PS,
@@ -126,18 +141,19 @@ def test_kernels_at_512_pages(cuda_dev):
     assert len(info.compressed_page_indices()) >= 512
     group, st = next(staged_batches(blob, info, 512, cuda_dev))
     assert st.buf.shape[1] == 512
-    tabs = tables_from_lengths(*tables_kernel.load_tables(st.buf))
+    tabs = assert_tables_equal(st.buf)
     out, ncmds, status = decode_kernel.decode_fused(st.buf, st.npd, tabs, PS)
     a = phase_a_kernel.phase_a(st.buf, st.npd, tabs, PS)
-    swept = sweep_kernel.sweep(a.ncmds, a.litq, a.ins, a.cpy, a.dist, PS,
-                               1024)
     torch.cuda.synchronize()
     assert int(status.abs().sum()) == 0 and int(a.status.abs().sum()) == 0
     assert torch.equal(ncmds, a.ncmds)
     want = torch.from_numpy(np.frombuffer(data, np.uint8).reshape(-1, PS))
     want = want[torch.tensor(group)].to(cuda_dev)
     assert torch.equal(out, want)
-    assert torch.equal(swept, want)
+    for cw in VALID_SWEEP_CW:
+        swept = sweep_kernel.sweep(a.ncmds, a.litq, a.ins, a.cpy, a.dist,
+                                   PS, cw)
+        assert torch.equal(swept, want)
 
 
 def two_phase_case(name):
@@ -190,7 +206,41 @@ def test_sweep_kernel_matches_plain(cuda_dev, case, cw):
 
 
 @pytest.mark.parametrize("cw", VALID_SWEEP_CW)
-def test_decode_stream_two_phase_cuda(cuda_dev, cw):
+def test_sweep_kernel_no_and_all_commands(cuda_dev, cw):
+    """The sweep's prologue on command lists made directly: a page with
+    no command, one whose every slot is a command (ncmds = N) and one
+    with huge lengths past its ncmds, which the prologue must mask."""
+    S, N = 32768, 600
+    r = np.random.default_rng(5)
+    ins = r.integers(0, 5, (3, N))
+    cpy = r.integers(2, 41, (3, N))
+    ins[:, 0] = 1
+    pos = np.cumsum(ins, axis=1) + np.cumsum(cpy, axis=1) - cpy
+    dist = np.minimum(r.integers(1, 3000, (3, N)), pos)
+    ncmds = np.array([0, N, N // 2])
+    ins[2, N // 2:] = cpy[2, N // 2:] = 1 << 20
+    litq = r.integers(0, 256, (3, S + 64), dtype=np.uint8)
+
+    def dev(x, dtype=torch.int32):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(cuda_dev, dtype)
+    args = (dev(ncmds), dev(litq, torch.uint8), dev(ins), dev(cpy),
+            dev(dist))
+    got = sweep_kernel.sweep(*args, S, cw)
+    torch.cuda.synchronize()
+    want = sweep_kernel.sweep_plain(*args, S)
+    assert torch.equal(got, want)
+    assert not want[0].any() and want[1].any() and want[2].any()
+
+
+@pytest.mark.parametrize("cw", VALID_SWEEP_CW)
+def test_decode_stream_two_phase_cuda(cuda_dev, cw, monkeypatch):
+    """One launch of each kernel of the route, and no torch middle stage
+    between the phase-A kernel and the sweep (the sweep's prologue lays
+    out the commands)."""
+    def no_middle_stage(*args, **kwargs):
+        raise AssertionError("the two-phase route ran the middle stage")
+    monkeypatch.setattr(sweep_kernel, "middle_stage", no_middle_stage)
+    no_torch_table_build(monkeypatch)
     data, blob = container(65536)
     _kernels.reset_launches()
     assert decode(blob, device="cuda", variant="two_phase",
@@ -217,9 +267,12 @@ def test_two_phase_garbage_pages_flagged_not_hung(cuda_dev):
     st = Staged(torch.zeros((wc, P, 128), dtype=torch.int32, device=cuda_dev),
                 torch.zeros((P, 4), dtype=torch.int32, device=cuda_dev))
     tabs = tables_from_lengths(*tables_kernel.load_tables_plain(st.buf))
-    a = phase_a_kernel.phase_a(st.buf, st.npd, tabs, S)
+    a = phase_a_kernel.phase_a(st.buf, st.npd, tables_kernel.load_tables(
+        st.buf), S)
     p = phase_a_kernel.phase_a_plain(st.buf, st.npd, tabs, S)
     assert bool((a.status != 0).all()) and bool((p.status != 0).all())
     for cw in VALID_SWEEP_CW:
-        sweep_kernel.sweep(a.ncmds, a.litq, a.ins, a.cpy, a.dist, S, cw)
+        out = sweep_kernel.sweep(a.ncmds, a.litq, a.ins, a.cpy, a.dist, S,
+                                 cw)
+        assert out.shape == (P, S)
     torch.cuda.synchronize()

@@ -17,7 +17,10 @@ from brotlig_tpu.ops import tables as JT
 from brotlig_tpu_torch.ops import tables as TT
 from brotlig_tpu_torch.ops import tables_kernel
 from brotlig_tpu_torch.ops.decode import staged_batches
+from brotlig_tpu_torch.state import (pack_tables, tables_from_jax,
+                                     tables_from_lengths)
 from test_ops_tables import batch_words, make_pages
+from test_torch_two_phase import torch_one_thread  # noqa: F401 (autouse)
 from test_roundtrip import make_data
 
 PS = 32768
@@ -141,13 +144,47 @@ def test_load_table_chain_matches_jax(staged, jax_chain):
     assert (trivs >= 0).any() and (trivs < 0).any()
 
 
-def test_tables_wrapper_cpu_route_matches_jax(staged, jax_chain):
+def _jax_packed(jax_chain):
     outs, jbp = jax_chain
+    return pack_tables(tables_from_jax(*[ln for ln, _ in outs],
+                                       np.stack([t for _, t in outs], axis=1),
+                                       jbp))
+
+
+def test_pack_tables_matches_jax(staged, jax_chain):
+    """The packed operands the tables kernel writes (meta, dicts, trivs,
+    bp), from the port's plain tables and from the JAX loader's, element
+    for element; the batch holds trivial codes and complex codes with
+    unused (length-0) symbols, whose dictionary slots stay 0."""
+    got = pack_tables(tables_from_lengths(
+        *tables_kernel.load_tables_plain(staged.buf)))
+    want = _jax_packed(jax_chain)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and g.is_contiguous()
+        assert torch.equal(g, w)
+    P = staged.buf.shape[1]
+    assert got.meta.shape == (P, 3, 3, 17) and got.dicts.shape == (P, 1528)
+    assert (got.trivs >= 0).any()
+    outs, _ = jax_chain
+    lens = np.concatenate([ln for ln, _ in outs], axis=1)
+    unused = (lens == 0).sum(axis=1)
+    assert (unused > 0).any() and ((got.trivs < 0).all(dim=1).numpy()
+                                   & (unused > 0)).any()
+    for p in range(P):
+        n = 0
+        for i, A in enumerate(ALPHABETS):
+            used = int((outs[i][0][p] > 0).sum())
+            assert not got.dicts[p, n + used:n + A].any()
+            n += A
+    limit, first, offset = got.meta.unbind(dim=2)
+    assert not limit[:, :, 16].any()           # the shift 15 - 16 < 0
+    assert not first[:, :, :2].any() and not offset[:, :, :2].any()
+
+
+def test_tables_wrapper_cpu_route_matches_jax(staged, jax_chain):
     got = tables_kernel.load_tables(staged.buf)
-    for i, (jln, jtriv) in enumerate(outs):
-        _eq(got[i], jln)
-        _eq(got[3][:, i], jtriv)
-    _eq(got[4], jbp)
+    for g, w in zip(got, _jax_packed(jax_chain)):
+        assert torch.equal(g, w)
 
 
 def test_tables_wrapper_rejects_other_devices(staged):

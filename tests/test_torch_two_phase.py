@@ -28,6 +28,18 @@ from test_roundtrip import make_data
 PS = 32768
 
 
+@pytest.fixture(scope="module", autouse=True)
+def torch_one_thread():
+    """Run the module's tests on one torch thread: their tensors are small,
+    so more threads cost more than they give, and the suite runs several
+    worker processes at once. test_torch_decode and test_torch_tables
+    import it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def stage(comps, device="cpu"):
     """Compressed page blobs -> state.Staged on `device`, in that order."""
     sizes = np.array([len(c) for c in comps], np.uint64)
@@ -74,10 +86,27 @@ def edge_case(name: str):
         data = make_data("text", 9000, seed=41) + \
             make_data("structured", 8192, seed=42)
         return data, encode_page(data, is_last=True), 131072
+    if name == "chained_copies":
+        # copies that chain across group boundaries at every cw: distance-1
+        # runs longer than 2048 bytes, and copies whose source lies in the
+        # previous 128-byte group
+        r = np.random.default_rng(11)
+        cmds = [(1, 3000, 1), (7, 130, 129), (2, 700, 3), (40, 1000, 160),
+                (1, 2500, 1), (9, 333, 300), (5, 4100, 2), (64, 250, 200),
+                (3, 2049, 1), (11, 126, 127)]
+        out = bytearray()
+        for ins, cpy, d in cmds:
+            out += r.integers(0, 256, ins, dtype=np.uint8).tobytes()
+            for _ in range(cpy):
+                out.append(out[-d])
+        ins, cpy, dist = (np.array(c, np.uint32) for c in zip(*cmds))
+        data = bytes(out)
+        return data, native.encode_page_cmds(data, True, ins, cpy, dist), PS
     raise ValueError(name)
 
 
-EDGE_CASES = ("single_command", "dense_commands", "max_page")
+EDGE_CASES = ("single_command", "dense_commands", "max_page",
+              "chained_copies")
 
 
 def plain_phase_a(comps, page_size: int, device="cpu"):
