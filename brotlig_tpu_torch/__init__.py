@@ -1,10 +1,11 @@
 """brotlig_tpu_torch: the PyTorch/CUDA port of the brotlig_tpu Brotli-G
 codec, beside the JAX package (which stays the reference).
 
-This slice covers batched page decode, on the fused and the two-phase
-routes. The port imports nothing of brotlig_tpu: format/ and native/ are
-its own copies of the format definitions and of the host C++ (stager, CPU
-decoder, encoder). The kernels under csrc/ are built with nvcc, and the
+It covers decode: batched page decode on the fused and the two-phase
+routes, pipelined over CUDA streams, BCn texture post-processing on the
+device, and pooled decode of many archives (parallel/). The port imports
+nothing of brotlig_tpu: format/ and native/ are its own copies of the
+format definitions and of the host C++ (stager, CPU decoder, encoder). The kernels under csrc/ are built with nvcc, and the
 host C++ with g++, on first use.
 """
 from .api import decode, decompressed_size, max_compressed_size

@@ -42,6 +42,10 @@ class Aborted(BrotligError):
     code = ErrorCode.ABORTED
 
 
+class TooManyPages(BrotligError):
+    code = ErrorCode.MAX_NUM_PAGES
+
+
 class CorruptStream(BrotligError):
     code = ErrorCode.CORRUPT_STREAM
 

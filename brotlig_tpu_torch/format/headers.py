@@ -1,6 +1,5 @@
-"""Container headers and page table (ref: inc/DataStream.h): the parsing
-half of brotlig_tpu/format/headers.py, copied for the port (decode reads
-containers; it writes none).
+"""Container headers and page table (ref: inc/DataStream.h): the port's
+copy of brotlig_tpu/format/headers.py, packing and parsing.
 
 Byte layout matches the reference's memcpy'd C structs (MSVC little-endian
 bitfields, LSB-first allocation):
@@ -24,7 +23,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from . import constants as C
-from .errors import CorruptStream, IncorrectStreamFormat
+from .errors import CorruptStream, IncorrectStreamFormat, TooManyPages
 from .precondition import DataConditionParams
 
 
@@ -44,6 +43,24 @@ class StreamHeader:
         ps = self.page_size
         return self.num_pages * ps - (0 if self.last_page_size == 0
                                       else ps - self.last_page_size)
+
+    @classmethod
+    def for_input(cls, input_size: int, page_size: int,
+                  preconditioned: bool) -> "StreamHeader":
+        num_pages, last = divmod(input_size, page_size)
+        if last:
+            num_pages += 1
+        if num_pages > C.MAX_NUM_PAGES:
+            raise TooManyPages("input too large for 16-bit page count")
+        return cls(num_pages, C.page_size_index(page_size), last,
+                   preconditioned)
+
+    def pack(self) -> bytes:
+        bits = (self.page_size_idx
+                | (self.last_page_size << 2)
+                | (int(self.preconditioned) << 20))
+        return struct.pack("<BBHI", C.STREAM_ID, C.STREAM_ID ^ 0xFF,
+                           self.num_pages, bits)
 
     @classmethod
     def unpack(cls, data: bytes) -> "StreamHeader":
@@ -66,6 +83,16 @@ class PreconditionHeader:
     num_mips: int
     pitch_in_bytes: int
 
+    def pack(self) -> bytes:
+        w0 = (int(self.swizzled)
+              | (int(self.pitch_d3d12_aligned) << 1)
+              | ((self.width_in_blocks - 1) << 2)
+              | ((self.height_in_blocks - 1) << 17))
+        w1 = (self.data_format
+              | ((self.num_mips - 1) << 8)
+              | ((self.pitch_in_bytes - 1) << 13))
+        return struct.pack("<II", w0, w1)
+
     @classmethod
     def unpack(cls, data: bytes) -> "PreconditionHeader":
         w0, w1 = struct.unpack_from("<II", data, 0)
@@ -78,6 +105,16 @@ class PreconditionHeader:
             num_mips=((w1 >> 8) & 0x1F) + 1,
             pitch_in_bytes=((w1 >> 13) & 0x7FFFF) + 1,
         )
+
+
+def pack_page_table(page_sizes) -> bytes:
+    """Compressed page sizes -> on-disk page table."""
+    sizes = np.asarray(page_sizes, dtype=np.int64)
+    table = np.zeros(len(sizes), dtype=np.uint32)
+    if len(sizes) > 1:
+        table[1:] = np.cumsum(sizes[:-1])
+    table[0] = sizes[-1]  # quirk: entry 0 holds the last page's size
+    return table.tobytes()
 
 
 def unpack_page_table(data: bytes, num_pages: int):

@@ -1,11 +1,19 @@
-"""BCn texture preconditioning geometry: the part of brotlig_tpu/format/
-precondition.py that container parsing reaches (headers.parse_container
-builds DataConditionParams and checks it against the output size). The
-index maps and delta coding come with the preconditioned-decode slice.
+"""BCn texture preconditioning: sub-block split, 2x2 block swizzle, per-page
+delta coding, and their inverses as vectorized index maps. The port's copy
+of brotlig_tpu/format/precondition.py, unchanged in behaviour.
+
+The reference conditions with an explicit gather (BrotligDataConditioner.cpp)
+and deconditions with a closed-form per-byte address transform
+(PageDecoder.cpp:406-444). Here both directions use one precomputed index
+map `cond_map` where `conditioned[i] == original[cond_map[i]]`, built with
+vectorized NumPy from the same closed form; ops/precondition.py uses it as
+a gather index on the device.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+
+import numpy as np
 
 from . import constants as C
 
@@ -41,6 +49,16 @@ class DataConditionParams:
     mip_offset_blocks: list = field(default_factory=lambda: [0] * 34)
     t_num_blocks: int = 0
     initialized: bool = False
+
+    def check(self):
+        if self.width_in_pixels > 4 * C.PRECON_MAX_TEX_WIDTH_BLOCK:
+            raise ValueError("texture too wide")
+        if self.height_in_pixels > 4 * C.PRECON_MAX_TEX_HEIGHT_BLOCK:
+            raise ValueError("texture too tall")
+        if self.row_pitch_in_bytes > C.PRECON_MAX_TEX_PITCH_BYTES:
+            raise ValueError("pitch too large")
+        if self.num_mip_levels > C.PRECON_MAX_NUM_MIP_LEVELS:
+            raise ValueError("too many mips")
 
     def initialize(self, input_size: int) -> bool:
         if self.initialized:
@@ -118,3 +136,113 @@ class DataConditionParams:
             return False
         self.initialized = True
         return True
+
+
+def build_cond_map(params: DataConditionParams) -> np.ndarray:
+    """conditioned-index -> original-index map over the sub-stream region.
+
+    Vectorization of DeconditionBC1_5 (PageDecoder.cpp:406-444): for every
+    byte of every sub-stream compute its (mip, row, col, sub-block, byte)
+    address, undoing the optional 2x2 block-tile swizzle.
+    """
+    maps = []
+    region = C.PRECON_SWIZZLE_REGION_SIZE
+    for sub, sub_size in enumerate(params.sub_block_sizes):
+        total = params.t_num_blocks * sub_size
+        idx = np.arange(total, dtype=np.int64)
+        mip_block_starts = np.asarray(
+            params.mip_offset_blocks[: params.num_mip_levels + 1],
+            dtype=np.int64) * sub_size
+        mip = np.searchsorted(mip_block_starts, idx, side="right") - 1
+        adj = idx - mip_block_starts[mip]
+        block = adj // sub_size
+        widths = np.asarray(params.width_in_blocks[: params.num_mip_levels],
+                            dtype=np.int64)
+        heights = np.asarray(params.height_in_blocks[: params.num_mip_levels],
+                             dtype=np.int64)
+        pitches = np.asarray(params.pitch_in_bytes[: params.num_mip_levels],
+                             dtype=np.int64)
+        w = widths[mip]
+        h = heights[mip]
+        row = block // w
+        col = block % w
+
+        if params.swizzle:
+            rem_w = w % region
+            rem_h = h % region
+            eff_w = w - rem_w
+            eff_h = h - rem_h
+            swz = (w >= region) & (h >= region) & (row < eff_h) & (col < eff_w)
+            eff_block = block - row * rem_w
+            width_grps = np.maximum(eff_w // region, 1)
+            grp = eff_block // (region * region)
+            in_grp = eff_block % (region * region)
+            orow = region * (grp // width_grps) + in_grp // region
+            ocol = region * (grp % width_grps) + in_grp % region
+            row = np.where(swz, orow, row)
+            col = np.where(swz, ocol, col)
+
+        mip_pos = np.asarray(params.mip_offsets_bytes, dtype=np.int64)[mip]
+        out = (mip_pos + row * pitches[mip]
+               + col * params.block_size_bytes
+               + params.sub_block_offsets[sub]
+               + adj % sub_size)
+        maps.append(out)
+    return np.concatenate(maps) if maps else np.zeros(0, dtype=np.int64)
+
+
+def condition(data: bytes, params: DataConditionParams) -> bytes:
+    """Forward preconditioning (== reference Condition, via the shared map)."""
+    arr = np.frombuffer(data, dtype=np.uint8)
+    cond_map = build_cond_map(params)
+    out = np.zeros(len(arr), dtype=np.uint8)
+    out[: len(cond_map)] = arr[cond_map]
+    return out.tobytes()
+
+
+def decondition(conditioned: bytes, params: DataConditionParams) -> bytes:
+    """Inverse preconditioning: scatter back to texture addresses."""
+    arr = np.frombuffer(conditioned, dtype=np.uint8)
+    cond_map = build_cond_map(params)
+    out = np.zeros(len(arr), dtype=np.uint8)
+    out[cond_map] = arr[: len(cond_map)]
+    return out.tobytes()
+
+
+def _color_intersections(page_start: int, page_end: int,
+                         params: DataConditionParams):
+    """Page-local (start, end) slices of color sub-streams in this page."""
+    spans = []
+    for sub in params.color_sub_blocks:
+        c0 = params.sub_stream_offsets[sub]
+        c1 = params.sub_stream_offsets[sub + 1]
+        if c0 < page_end and page_start < c1:
+            s = c0 - page_start if c0 > page_start else 0
+            e = c1 - page_start if c1 < page_end else page_end - page_start
+            spans.append((s, e))
+    return spans
+
+
+def delta_encode_page(page: bytes, page_start: int,
+                      params: DataConditionParams):
+    """Per-page byte delta over color sub-stream intersections
+    (ref: PageEncoder.cpp:576-612). Returns (bytes, was_encoded)."""
+    arr = np.frombuffer(page, dtype=np.uint8).copy()
+    spans = _color_intersections(page_start, page_start + len(page), params)
+    for s, e in spans:
+        seg = arr[s:e]
+        if len(seg) > 1:
+            arr[s + 1: e] = np.diff(seg.astype(np.int16)).astype(np.uint8)
+    return arr.tobytes(), bool(spans)
+
+
+def delta_decode_page(page: bytes, page_start: int,
+                      params: DataConditionParams) -> bytes:
+    """Inverse of delta_encode_page: per-span prefix sum mod 256
+    (ref: PageDecoder.cpp:446-471)."""
+    arr = np.frombuffer(page, dtype=np.uint8).copy()
+    for s, e in _color_intersections(page_start, page_start + len(page),
+                                     params):
+        seg = arr[s:e]
+        arr[s:e] = np.cumsum(seg.astype(np.int64)).astype(np.uint8)
+    return arr.tobytes()

@@ -228,18 +228,31 @@ def parse_page(data: bytes, max_chain: int = 64, quality: int = 11):
 
 
 def stage_pages(payload: bytes, offsets, sizes, wl: int,
-                num_threads: int = 0):
+                num_threads: int = 0, out=None):
     """Parse page headers + size tables and build the word-round-robin
     interleaved decode buffer on the host (the kernels' input layout; see
     brotlig_stage.cpp). Returns (buf3 [wl*32//128, P, 128] int32,
-    npd [P, 4] int32 = (npostfix, ndirect, isdelta, 0))."""
+    npd [P, 4] int32 = (npostfix, ndirect, isdelta, 0)).
+
+    out: optional (buf3, npd) numpy arrays of those shapes, C-contiguous
+    int32, to write into instead of new ones (the decode pipeline passes
+    views of page-locked buffers); the stager writes every element."""
     lib = _load()
     offs = np.ascontiguousarray(offsets, dtype=np.uint64)
     szs = np.ascontiguousarray(sizes, dtype=np.uint64)
     P = len(offs)
     wc = wl * 32 // 128
-    buf3 = np.zeros((wc, P, 128), dtype=np.int32)
-    npd = np.zeros((P, 4), dtype=np.int32)
+    if out is None:
+        buf3 = np.zeros((wc, P, 128), dtype=np.int32)
+        npd = np.zeros((P, 4), dtype=np.int32)
+    else:
+        buf3, npd = out
+        for a, shape in ((buf3, (wc, P, 128)), (npd, (P, 4))):
+            if (a.shape != shape or a.dtype != np.int32
+                    or not a.flags.c_contiguous or not a.flags.writeable):
+                raise ValueError(f"stage_pages: output {a.shape} {a.dtype}, "
+                                 f"want a writable C-contiguous int32 "
+                                 f"{shape}")
     rc = lib.blg_stage_pages(payload, len(payload), offs, szs, P, wl,
                              buf3, npd, num_threads)
     if rc != 0:

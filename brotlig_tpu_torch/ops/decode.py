@@ -23,6 +23,9 @@ output bytes past a page's coverage are zero instead of unspecified.
 """
 from __future__ import annotations
 
+from collections import deque
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -30,9 +33,11 @@ from .. import native
 from ..format import constants as C
 from ..format.errors import Aborted
 from ..format.headers import parse_container
-from ..state import staged_from_numpy, tables_from_lengths
+from ..state import (StagingBuffers, Streams, staged_from_numpy,
+                     tables_from_lengths)
 from . import arith_lut, tables_kernel
 from .bits import extract_bits, fetch_window, reverse_bits_15
+from .precondition import postprocess_device, postprocess_flat_device
 from .tables import (HEADER_WORDS, build_search, load_table,
                      narrow_stream_view, parse_page_headers_full,
                      search_decode)
@@ -427,39 +432,148 @@ def decode_batch(staged, page_size: int, variant=None,
                                       page_size)
 
 
+def batch_plan(payload: bytes, offsets, sizes, batch_pages: int):
+    """How the compressed pages at `offsets`/`sizes` of `payload` are
+    staged: (wl, the per-stream word capacity of the staged buffer, a
+    bucket of the largest sub-stream; batches, lists of at most
+    `batch_pages` positions into offsets/sizes, sorted by compressed size
+    so that similar pages finish together). The last batch is short, not
+    padded."""
+    from .decode_kernel import stream_words_hint, wl_bucket
+    order = sorted(range(len(sizes)), key=lambda j: int(sizes[j]))
+    mv = memoryview(payload)
+    wl = wl_bucket(stream_words_hint(
+        [(bytes(mv[int(o): int(o) + 96]), int(n))
+         for o, n in zip(offsets, sizes)]))
+    return wl, [order[c0: c0 + batch_pages]
+                for c0 in range(0, len(order), batch_pages)]
+
+
+def compressed_jobs(info):
+    """(page indices, offsets, sizes) of a parsed container's compressed
+    pages."""
+    comp = np.asarray(info.compressed_page_indices(), dtype=np.int64)
+    return comp, info.offsets[comp], info.sizes[comp]
+
+
 def staged_batches(data: bytes, info, batch_pages: int, device):
     """Yield (page indices, state.Staged on `device`) for the compressed
-    pages of a parsed container (format.headers.parse_container), in
-    batches of `batch_pages` pages of similar compressed size: similar
-    pages finish together. native.stage_pages parses each page's size
-    table and interleaves its 32 sub-streams on the host."""
-    from .decode_kernel import stream_words_hint, wl_bucket
-
-    offsets, sizes = info.offsets, info.sizes
-    comp_idx = sorted(info.compressed_page_indices(),
-                      key=lambda i: int(sizes[i]))
-    if not comp_idx:
+    pages of a parsed container (format.headers.parse_container), batch
+    by batch as batch_plan makes them, each staged by native.stage_pages
+    (which parses each page's size table and interleaves its 32
+    sub-streams on the host) and uploaded with a plain blocking copy.
+    decode_stream runs the same batches through decode_batches."""
+    comp, offs, szs = compressed_jobs(info)
+    if not len(comp):
         return
-    mv = memoryview(data)
-    wl = wl_bucket(stream_words_hint(
-        [(bytes(mv[int(offsets[i]): int(offsets[i]) + 96]), int(sizes[i]))
-         for i in comp_idx]))
-    for c0 in range(0, len(comp_idx), batch_pages):
-        group = comp_idx[c0: c0 + batch_pages]
-        offs = np.array([int(offsets[i]) for i in group], np.uint64)
-        szs = np.array([int(sizes[i]) for i in group], np.uint64)
-        buf3_np, npd_np = native.stage_pages(data, offs, szs, wl)
-        yield group, staged_from_numpy(buf3_np, npd_np, device)
+    wl, batches = batch_plan(data, offs, szs, batch_pages)
+    for b in batches:
+        buf3_np, npd_np = native.stage_pages(data, offs[b], szs[b], wl)
+        yield [int(i) for i in comp[b]], staged_from_numpy(buf3_np, npd_np,
+                                                           device)
+
+
+class _InFlight(NamedTuple):
+    """A launched batch not yet drained."""
+    keys: np.ndarray        # the batch's page keys, in row order
+    isdelta: np.ndarray     # each page's delta flag, from the host staging
+    device: tuple           # device tensors its queued work still uses
+    pages: np.ndarray | None    # host rows, valid once `done` completed
+    status: np.ndarray      # host status, valid once `done` completed
+    done: object            # event after its readback (None on the CPU)
+
+
+def decode_batches(payload: bytes, keys, offsets, sizes, page_size: int,
+                   dev: torch.device, drain, batch_pages: int = 256,
+                   variant=None, sweep_cw: int = 1024, plane=None) -> None:
+    """Decode compressed pages of `payload` (page j at offsets[j] with
+    sizes[j] bytes, known to the caller as keys[j]) in the batches of
+    batch_plan, dispatching ahead and draining behind.
+
+    For each batch, in order: stage it on the host into reused buffers
+    (page-locked on a card) while the card still runs the batch before;
+    upload it on the copy stream; launch its route on the compute stream
+    (decode_batch); queue the readback of its status, and of its pages
+    unless `plane` is given, into reused host buffers on the copy stream.
+    Then drain the oldest batch while more than two are in flight: wait
+    for its readback's event (the only point where the host waits for the
+    card), raise ValueError("corrupt stream") if a page has a status bit,
+    and call drain(keys, pages [n, page_size] uint8 numpy or None,
+    isdelta [n] bool) on the host. Batches drain in launch order.
+
+    plane: optional uint8 [rows, page_size] tensor on `dev`; each batch's
+    pages are copied into rows `keys` of it on the device (index_copy_)
+    and not read back. Whatever drain raises (format.errors.Aborted, for
+    one) propagates once every queued copy has completed."""
+    offsets = np.asarray(offsets, dtype=np.uint64)
+    sizes = np.asarray(sizes, dtype=np.uint64)
+    keys = np.asarray(keys, dtype=np.int64)
+    wl, batches = batch_plan(payload, offsets, sizes, batch_pages)
+    if not batches:
+        return
+    st = Streams(dev)
+    P = len(batches[0])
+    staging = [StagingBuffers(st, wl * NBS // 128, P) for _ in range(2)]
+    # a batch's readback buffers are reused three batches later, after
+    # its drain
+    back_status = [st.host_empty(P, torch.int32) for _ in range(3)]
+    back_pages = [None if plane is not None
+                  else st.host_empty(P * page_size, torch.uint8)
+                  for _ in range(3)]
+    inflight: deque = deque()
+    try:
+        for k, b in enumerate(batches):
+            n = len(b)
+            buf = staging[k % 2]
+            buf3, npd = buf.stage(payload, offsets[b], sizes[b], wl)
+            isdelta = npd.numpy()[:, 2] != 0
+            staged, rows = buf.upload(buf3, npd,
+                                      None if plane is None else keys[b])
+            pages, _, status = decode_batch(staged, page_size, variant,
+                                            sweep_cw)
+            if plane is not None:
+                plane.index_copy_(0, rows, pages)
+            launched = st.record(st.compute)
+            status_h = back_status[k % 3][:n]
+            pages_h = None if plane is not None else \
+                back_pages[k % 3][: n * page_size].view(n, page_size)
+            with st.on_copy():
+                st.wait(st.copy, launched)
+                status_h.copy_(status, non_blocking=True)
+                if pages_h is not None:
+                    pages_h.copy_(pages, non_blocking=True)
+                done = st.record(st.copy)
+            inflight.append(_InFlight(
+                keys[b], isdelta, (staged, rows, pages, status),
+                None if pages_h is None else pages_h.numpy(),
+                status_h.numpy(), done))
+            if len(inflight) > 2:
+                _drain(st, inflight.popleft(), drain)
+        while inflight:
+            _drain(st, inflight.popleft(), drain)
+    finally:
+        # no copy may still write into buffers this call drops
+        for b in inflight:
+            st.sync(b.done)
+
+
+def _drain(st: Streams, b: _InFlight, drain) -> None:
+    st.sync(b.done)
+    if bool((b.status != 0).any()):
+        raise ValueError("corrupt stream")
+    drain(b.keys, b.pages, b.isdelta)
 
 
 def decode_stream(data: bytes, device, batch_pages: int = 256,
-                  feedback=None, variant=None, sweep_cw: int = 1024) -> bytes:
+                  feedback=None, variant=None, sweep_cw: int = 1024,
+                  return_device: bool = False):
     """Decode a full Brotli-G container on `device` ("cuda" or "cpu").
 
     Raw pages are copied on the host; compressed pages are decoded in
-    size-sorted batches of `batch_pages` (staged_batches), each through
-    the tables step and a decode route on the device: the CUDA kernels
-    for a CUDA device, their plain versions on the CPU.
+    size-sorted batches of `batch_pages` by decode_batches (dispatch
+    ahead, drain behind), each through the tables step and a decode
+    route on the device: the CUDA kernels for a CUDA device, their plain
+    versions on the CPU.
 
     variant picks the route, as in the JAX package:
     * None or "fused": the tables kernel, then the fused decode kernel
@@ -473,36 +587,86 @@ def decode_stream(data: bytes, device, batch_pages: int = 256,
     fused kernel executes each round's copies at once. The bytes never
     depend on it. Bad values raise ValueError.
 
+    Preconditioned (BCn texture) containers are delta-decoded and
+    deconditioned on `device` (ops.precondition). Up to 1 GiB of pages,
+    the decoded pages stay there, in a [num_pages, page_size] plane, and
+    only the deconditioned bytes come back; with return_device=True they
+    stay on the device and a uint8 tensor is returned. Larger streams,
+    and streams of raw pages only, are assembled on the host and then
+    postprocessed on `device` (bytes are returned).
+
     feedback: optional callable(progress 0..100) -> bool, invoked after
-    each batch; returning True raises format.errors.Aborted."""
+    each batch drains with the share of compressed pages drained;
+    returning True raises format.errors.Aborted."""
     _check_opts(variant, sweep_cw)
     dev = resolve_device(device)
     info = parse_container(data)
-    if info.dc_params is not None:
-        raise NotImplementedError(
-            "preconditioned streams are not ported yet (ROADMAP queue 1, "
-            "preconditioned decode)")
-    page_size = info.header.page_size
+    header, dc = info.header, info.dc_params
+    if header.num_pages == 0:
+        return b""
+    page_size = header.page_size
     page_out_sizes = info.page_out_sizes
+    raw_idx = info.raw_page_indices()
+    comp, offs, szs = compressed_jobs(info)
+    # the fused postprocess keeps the decoded pages on the device, bounded
+    # to 1 GiB of plane (multi-GB bundles assemble on the host)
+    fuse_dc = dc is not None and len(comp) > 0 and \
+        header.num_pages * page_size <= (1 << 30)
 
     out = bytearray(info.out_size)
-    for i in info.raw_page_indices():
-        off = int(info.offsets[i])
-        out[i * page_size: i * page_size + page_out_sizes[i]] = \
-            data[off: off + page_out_sizes[i]]
+    out_np = np.frombuffer(out, np.uint8)
+    plane = None
+    if fuse_dc:
+        plane = torch.zeros((header.num_pages, page_size), dtype=torch.uint8,
+                            device=dev)
+        if raw_idx:
+            # raw pages go into the plane once
+            raw_rows = np.zeros((len(raw_idx), page_size), np.uint8)
+            for r, i in enumerate(raw_idx):
+                off = int(info.offsets[i])
+                raw_rows[r, : page_out_sizes[i]] = np.frombuffer(
+                    data, np.uint8, page_out_sizes[i], off)
+            plane.index_copy_(0, torch.tensor(raw_idx, device=dev),
+                              torch.from_numpy(raw_rows).to(dev))
+    else:
+        for i in raw_idx:
+            off = int(info.offsets[i])
+            out[i * page_size: i * page_size + page_out_sizes[i]] = \
+                data[off: off + page_out_sizes[i]]
 
-    n_comp = len(info.compressed_page_indices())
-    done = 0
-    for group, staged in staged_batches(data, info, batch_pages, dev):
-        pages, _, status = decode_batch(staged, page_size, variant,
-                                        sweep_cw)
-        if bool((status != 0).any()):
-            raise ValueError("corrupt stream")
-        pages_np = pages.cpu().numpy()
-        for row, i in enumerate(group):
-            n = page_out_sizes[i]
-            out[i * page_size: i * page_size + n] = pages_np[row, :n].tobytes()
-        done += len(group)
-        if feedback is not None and feedback(done * 100.0 / n_comp):
+    isdelta_pages: set = set()
+    drained = [0]
+
+    def drain(keys, pages, isdelta):
+        isdelta_pages.update(int(i) for i in keys[isdelta])
+        if pages is not None:
+            for row, i in enumerate(keys):
+                n = page_out_sizes[i]
+                out_np[i * page_size: i * page_size + n] = pages[row, :n]
+        drained[0] += len(keys)
+        if feedback is not None and feedback(
+                drained[0] * 100.0 / max(len(comp), 1)):
             raise Aborted("decode aborted by feedback proc")
-    return bytes(out)
+
+    decode_batches(data, comp, offs, szs, page_size, dev, drain,
+                   batch_pages, variant, sweep_cw, plane)
+
+    if dc is None:
+        return bytes(out)
+    # only compressed pages whose header flag is set were delta-encoded
+    flagged = isdelta_pages if len(comp) else set()
+    if fuse_dc:
+        res = postprocess_flat_device(plane.reshape(-1)[: info.out_size],
+                                      dc, page_size, flagged)
+        return res if return_device else _host_bytes(res)
+    return postprocess_device(bytes(out), dc, page_size, dev, flagged)
+
+
+def _host_bytes(t: torch.Tensor) -> bytes:
+    """A uint8 device tensor's bytes, read back through page-locked
+    memory on a card."""
+    if not t.is_cuda:
+        return t.numpy().tobytes()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    return host.numpy().tobytes()

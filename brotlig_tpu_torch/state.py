@@ -10,6 +10,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import native
 from .format import constants as C
 
 from .ops.tables import build_search
@@ -52,12 +53,101 @@ class KernelTables(NamedTuple):
 def staged_from_numpy(buf3_np: np.ndarray, npd_np: np.ndarray,
                       device) -> Staged:
     """native.stage_pages' (buf3 [Wc, P, 128], npd [P, 4]) -> Staged on
-    `device`. The layout stays as staged: the kernels index it directly."""
+    `device`. The layout stays as staged: the kernels index it directly.
+    A plain blocking upload; the decode pipeline stages into page-locked
+    buffers and uploads with StagingBuffers instead."""
     if buf3_np.ndim != 3 or buf3_np.shape[2] != 128:
         raise ValueError(f"staged buffer shape {buf3_np.shape}")
     buf = torch.from_numpy(np.ascontiguousarray(buf3_np, np.int32))
     npd = torch.from_numpy(np.ascontiguousarray(npd_np, np.int32))
     return Staged(buf.to(device), npd.to(device))
+
+
+class Streams:
+    """The streams a decode runs on: `compute`, the device's current
+    stream, where the kernels launch, and `copy`, for uploads and
+    readbacks; events order one to the other. On the CPU both are None and
+    every event call does nothing, so the same code runs eagerly there."""
+
+    def __init__(self, device: torch.device):
+        cuda = device.type == "cuda"
+        self.device = device
+        self.compute = torch.cuda.current_stream(device) if cuda else None
+        self.copy = torch.cuda.Stream(device) if cuda else None
+
+    def on_copy(self):
+        """Context in which work is queued on the copy stream."""
+        return torch.cuda.stream(self.copy)
+
+    @staticmethod
+    def record(stream):
+        """An event recorded on `stream` now (None on the CPU)."""
+        return None if stream is None else stream.record_event()
+
+    @staticmethod
+    def wait(stream, event) -> None:
+        """Make `stream`'s later work wait for `event`."""
+        if event is not None:
+            stream.wait_event(event)
+
+    @staticmethod
+    def sync(event) -> None:
+        """Block the host until `event` has completed."""
+        if event is not None:
+            event.synchronize()
+
+    def host_empty(self, n: int, dtype) -> torch.Tensor:
+        """n elements of host memory, page-locked when the device is a
+        card, so that copies to and from it run asynchronously; raises
+        when pinning fails."""
+        return torch.empty(n, dtype=dtype, pin_memory=self.copy is not None)
+
+
+class StagingBuffers:
+    """Reused host buffers for one staged batch of up to `pages` pages
+    at `wc` staged chunks (buf, npd, and an int64 row per page), and the
+    event of their last upload: they are written again only after that
+    upload has completed."""
+
+    def __init__(self, streams: Streams, wc: int, pages: int):
+        self.streams = streams
+        self.wc = wc
+        self.buf = streams.host_empty(wc * pages * 128, torch.int32)
+        self.npd = streams.host_empty(pages * 4, torch.int32)
+        self.rows = streams.host_empty(pages, torch.int64)
+        self.uploaded = None
+
+    def stage(self, payload: bytes, offsets, sizes, wl: int):
+        """native.stage_pages into the buffers, once their last upload is
+        done. Returns host views (buf3 [wc, P, 128], npd [P, 4])."""
+        self.streams.sync(self.uploaded)
+        P = len(offsets)
+        buf3 = self.buf[: self.wc * P * 128].view(self.wc, P, 128)
+        npd = self.npd[: P * 4].view(P, 4)
+        native.stage_pages(payload, offsets, sizes, wl,
+                           out=(buf3.numpy(), npd.numpy()))
+        return buf3, npd
+
+    def upload(self, buf3, npd, rows=None):
+        """Copy a staged batch (and optionally its destination rows) to
+        the device on the copy stream, and make the compute stream wait
+        for the copy. Returns (Staged, rows or None) on the device."""
+        st = self.streams
+        if rows is not None:
+            self.rows[: len(rows)].numpy()[:] = rows
+            rows = self.rows[: len(rows)]
+        with st.on_copy():
+            dev = [None if t is None else t.to(st.device, non_blocking=True)
+                   for t in (buf3, npd, rows)]
+            self.uploaded = st.record(st.copy)
+        st.wait(st.compute, self.uploaded)
+        if st.compute is not None:
+            for t in dev:
+                if t is not None:
+                    # allocated on the copy stream, read on the compute
+                    # stream: not reused before the compute stream is done
+                    t.record_stream(st.compute)
+        return Staged(dev[0], dev[1]), dev[2]
 
 
 def _search(lengths):

@@ -15,16 +15,28 @@ once, CUDA events), so they hold no wrapper work. It times the fused and
 phase-A kernels on each page of that batch alone, prints the batch's
 chain lengths (commands, literals and rounds per page, and those of the
 page each kernel is slowest on), times both kernels at 256 and 512 pages
-a launch and at 32 and 128 KiB pages, then drives the main path,
-brotlig_tpu_torch.decode(..., device="cuda"), on mixed-corpus containers
-through the fused route and through the two-phase route (sweep_cw 128
-and 2048 on every container, 512 and 1024 on the 16 MiB one),
-byte-exactly, checks from the launch counts that each route went through
-its kernels, and times the kernels against their plain versions and both
-routes end to end. Progress goes to earlier lines; the
-line before the last is the card's name and power limit, the last line a
-JSON verdict. Any failure raises and exits non-zero; without a CUDA device
-it exits non-zero before printing any result.
+a launch and at 32 and 128 KiB pages.
+
+Then it drives the main path, brotlig_tpu_torch.decode(..., device=
+"cuda"), byte-exactly: on mixed-corpus containers through the fused
+route and the two-phase route (sweep_cw 128 and 2048 on every container,
+512 and 1024 on the 16 MiB one), and on four BCn textures built with the
+port's own code (the BASELINE config-3 BC1 texture among them) through
+the fused route and the two-phase route at sweep_cw 1024; the launch
+counts, set to 0 before each set of runs and read after it, show that
+every kernel of a route launched once a batch. The device postprocess of
+each texture is held to its plain run on the CPU (tolerance 0) and timed
+beside its bound. The 64 MiB container is decoded five times in a row,
+and the pipeline's batch loop is run under torch's sync debug mode. A
+pool of 68 archives is decoded in shared batches (decode_archives_batched)
+and one by one. End to end: both routes in turns, the pipeline against
+the serial order it replaced, a per-stage host breakdown, and the
+config-3 texture to host bytes and kept on the card.
+
+Progress goes to earlier lines; the line before the last is the card's
+name and power limit, the last line a JSON verdict. Any failure raises
+and exits non-zero; without a CUDA device it exits non-zero before
+printing any result.
 """
 from __future__ import annotations
 
@@ -468,6 +480,24 @@ def batches_of(blob: bytes) -> int:
     return (n + BATCH - 1) // BATCH
 
 
+def want_launches(cases, runs) -> tuple:
+    """The launch counts a list of (container, options) runs makes when
+    every kernel of its route launches once a batch: (counts, sweep
+    counts by width)."""
+    counts = {"tables": 0, "decode": 0, "phase_a": 0, "sweep": 0}
+    by_cw = dict.fromkeys(SWEEP_CWS, 0)
+    for name, opts in runs:
+        nb = batches_of(cases[name][1])
+        counts["tables"] += nb
+        if opts.get("variant") == "two_phase":
+            counts["phase_a"] += nb
+            counts["sweep"] += nb
+            by_cw[opts["sweep_cw"]] += nb
+        else:
+            counts["decode"] += nb
+    return counts, by_cw
+
+
 def drive(cases, runs, what: str) -> tuple:
     """The main path: decode every (container, options) pair of runs on
     the card byte-exactly, with the launch counts set to 0 just before and
@@ -502,6 +532,334 @@ def drive(cases, runs, what: str) -> tuple:
         for name, (mod, fn) in saved.items():
             setattr(mod, name, fn)
     return (*launches, calls)
+
+
+# ---------------------------------------------------------------------------
+# Preconditioned (BCn texture) containers, built with the port's own code
+# ---------------------------------------------------------------------------
+
+def make_bc1(w: int, h: int) -> bytes:
+    """bench.py's BASELINE config-3 texture generator (_make_bc1), seeded
+    the same: correlated endpoint colors and low-entropy index rows."""
+    import numpy as np
+    r = np.random.default_rng(7)
+    nblocks = (w // 4) * (h // 4)
+    c0 = (r.integers(0, 64, nblocks) * 1024 +
+          np.arange(nblocks) % 1024).astype("<u2")
+    c1 = (c0.astype(np.uint32) * 3 // 4).astype("<u2")
+    idx = r.integers(0, 4, (nblocks, 4)).astype(np.uint8) * 0x55
+    blocks = np.zeros((nblocks, 8), np.uint8)
+    blocks[:, 0:2] = c0.view(np.uint8).reshape(-1, 2)
+    blocks[:, 2:4] = c1.view(np.uint8).reshape(-1, 2)
+    blocks[:, 4:8] = idx
+    return blocks.tobytes()
+
+
+def make_bc3(size: int, seed: int) -> bytes:
+    """BC3 blocks of `size` bytes whose endpoints are smooth and whose
+    index bytes are random: the conditioned index sub-streams do not
+    compress and are stored as raw pages, the rest compresses."""
+    import numpy as np
+    r = np.random.default_rng(seed)
+    nblocks = size // 16
+    ramp = (np.arange(nblocks) // 37) % 256
+    blocks = r.integers(0, 256, (nblocks, 16)).astype(np.uint8)
+    for col in (0, 1, 8, 9, 10, 11):
+        blocks[:, col] = (ramp + r.integers(0, 4, nblocks) + col) % 256
+    return blocks.tobytes()
+
+
+def texture_params(fmt: int, w: int, h: int, mips: int, swizzle: bool,
+                   delta: bool, size: int):
+    from brotlig_tpu_torch.format.precondition import DataConditionParams
+    p = DataConditionParams(precondition=True, swizzle=swizzle,
+                            delta_encode=delta, format=fmt,
+                            width_in_pixels=w, height_in_pixels=h,
+                            num_mip_levels=mips)
+    if not p.initialize(size):
+        raise AssertionError(f"texture geometry does not match {size} B")
+    return p
+
+
+def texture_size(fmt: int, w: int, h: int, mips: int) -> int:
+    from brotlig_tpu_torch.format.precondition import DataConditionParams
+    p = DataConditionParams(precondition=True, format=fmt,
+                            width_in_pixels=w, height_in_pixels=h,
+                            num_mip_levels=mips)
+    p.initialize(0)          # fills the geometry; the size check fails
+    return p.mip_offsets_bytes[p.num_mip_levels]
+
+
+def texture_container(tex: bytes, params, page: int, dev) -> bytes:
+    """A preconditioned container of `tex`, built with the port's code:
+    the condition gather and delta encode on the card
+    (ops.precondition.preprocess_device), each page's q1 commands and
+    serialisation by the native encoder in threads, stored raw (the
+    conditioned non-delta bytes, as the decoder expects) where it does
+    not compress, then the port's header and page-table packers."""
+    from concurrent.futures import ThreadPoolExecutor
+    from brotlig_tpu_torch import native
+    from brotlig_tpu_torch.format.headers import (PreconditionHeader,
+                                                  StreamHeader,
+                                                  pack_page_table)
+    from brotlig_tpu_torch.ops.precondition import preprocess_device
+    cond, work, flags = preprocess_device(tex, params, page, dev)
+    n_pages = -(-len(tex) // page)
+
+    def pack(i):
+        w = work[i * page:(i + 1) * page]
+        ins, cpy, dist, _ = native.parse_page(w, quality=1)
+        comp = native.encode_page_cmds(w, i == n_pages - 1, ins, cpy, dist,
+                                       isdelta=flags[i])
+        return cond[i * page: i * page + len(w)] if len(comp) == len(w) \
+            else comp
+    with ThreadPoolExecutor(os.cpu_count()) as ex:
+        pages = list(ex.map(pack, range(n_pages)))
+    ph = PreconditionHeader(
+        params.swizzle, params.pitch_d3d12_aligned,
+        params.width_in_blocks[0], params.height_in_blocks[0],
+        params.format, params.num_mip_levels, params.pitch_in_bytes[0])
+    return (StreamHeader.for_input(len(tex), page, True).pack() + ph.pack()
+            + pack_page_table([len(c) for c in pages]) + b"".join(pages))
+
+
+def textures(dev) -> dict:
+    """{name: (texture, container, params, page size)}: BASELINE config 3
+    (bench.py:547-583: a 4096 x 8192 BC1 texture, 16 MiB, 64 KiB pages,
+    swizzle and delta), a BC3 texture with mips and no swizzle (raw pages
+    among compressed ones), a random BC5 texture (raw pages only) and a
+    BC1 texture at 32 KiB pages."""
+    import numpy as np
+    from brotlig_tpu_torch.format import constants as FC
+    specs = [
+        ("config-3 BC1 4096x8192, swizzle+delta, 64 KiB pages",
+         FC.DATA_FORMAT_BC1, 4096, 8192, 1, True, True, PAGE,
+         lambda n: make_bc1(4096, 8192)),
+        ("BC3 2048x1024, 4 mips, delta, no swizzle, raw index pages",
+         FC.DATA_FORMAT_BC3, 2048, 1024, 4, False, True, PAGE,
+         lambda n: make_bc3(n, 3)),
+        ("random BC5 1024x1024, swizzle+delta, raw pages only",
+         FC.DATA_FORMAT_BC5, 1024, 1024, 1, True, True, PAGE,
+         lambda n: np.random.default_rng(5).integers(
+             0, 256, n, dtype=np.uint8).tobytes()),
+        ("BC1 2048x2048, swizzle+delta, 32 KiB pages",
+         FC.DATA_FORMAT_BC1, 2048, 2048, 1, True, True, 32768,
+         lambda n: make_bc1(2048, 2048)),
+    ]
+    out = {}
+    for name, fmt, w, h, mips, swz, delta, page, gen in specs:
+        size = texture_size(fmt, w, h, mips)
+        tex = gen(size)
+        params = texture_params(fmt, w, h, mips, swz, delta, size)
+        out[name] = (tex, texture_container(tex, params, page, dev), params,
+                     page)
+    return out
+
+
+def texture_plane(blob: bytes, dev):
+    """A preconditioned container's decoded (still conditioned) pages in
+    a [num_pages, page size] plane on `dev`, through the pipeline: (the
+    plane's first out-size bytes, flat; the compressed pages flagged as
+    delta-encoded; the page size)."""
+    import numpy as np
+    import torch
+    from brotlig_tpu_torch.format.headers import parse_container
+    from brotlig_tpu_torch.ops.decode import compressed_jobs, decode_batches
+    info = parse_container(blob)
+    ps = info.header.page_size
+    plane = torch.zeros((info.header.num_pages, ps), dtype=torch.uint8,
+                        device=dev)
+    for i in info.raw_page_indices():
+        n = info.page_out_sizes[i]
+        row = np.frombuffer(blob, np.uint8, n, int(info.offsets[i]))
+        plane[i, :n] = torch.from_numpy(row.copy()).to(dev)
+    flagged = set()
+    decode_batches(blob, *compressed_jobs(info), ps, dev,
+                   lambda keys, _, isdelta: flagged.update(
+                       int(k) for k in keys[isdelta]), BATCH, plane=plane)
+    return plane.reshape(-1)[: info.out_size], flagged, ps
+
+
+def postprocess_phase(name, tex, blob, params, gpu) -> dict:
+    """The device postprocess (delta decode and decondition gather) of a
+    texture's decoded plane on the card against its plain run on the CPU
+    (tolerance 0), both against the texture; its time alone on the card
+    (CUDA events, maps cached) beside its bound, and the bytes the plane
+    and the cached maps hold on the card."""
+    import torch
+    from brotlig_tpu_torch.ops import precondition as pre
+    dev = torch.device("cuda")
+    flat, flagged, ps = texture_plane(blob, dev)
+    got = pre.postprocess_flat_device(flat, params, ps, flagged)
+    torch.cuda.synchronize()
+    want = pre.postprocess_flat_device(flat.cpu(), params, ps, flagged)
+    err = max_abs_err((got.cpu(),), (want,))
+    if err != 0 or got.cpu().numpy().tobytes() != tex:
+        raise AssertionError(f"{name}: device postprocess differs from "
+                             f"plain ({err}) or from the texture")
+    n = int(flat.shape[0])
+    masks = pre._delta_masks(params, n, ps, dev, flagged)
+    inv, valid = pre._inv_maps(params, n, dev)
+    maps = [inv, valid] + ([] if masks is None else list(masks[:2]))
+    map_bytes = sum(t.numel() * t.element_size() for t in maps)
+    ms = time_ms(lambda: pre.postprocess_flat_device(flat, params, ps,
+                                                     flagged), REPS)
+    # read once: the plane and the maps; written once: the texture
+    b = bound(2 * n + map_bytes, 0)
+    print(f"[smoke] postprocess on the card == plain on the CPU == texture "
+          f"(tolerance 0), {name}: {ms:.4f} ms, bound {b['bound_ms']:.4f} "
+          f"ms ({b['bound_by']}); resident: plane "
+          f"{flat.untyped_storage().nbytes()} B, maps {map_bytes} B "
+          f"({', '.join(f'{tuple(t.shape)} {t.dtype}' for t in maps)}) "
+          f"[{gpu}]", flush=True)
+    return {"ms": ms, "bound_ms": b["bound_ms"], "map_bytes": map_bytes}
+
+
+# ---------------------------------------------------------------------------
+# The pipeline against the serial order, and where a decode's host time goes
+# ---------------------------------------------------------------------------
+
+def decode_serial(blob: bytes, dev) -> bytes:
+    """The stream decode in the serial order used before the pipeline,
+    rebuilt from the package's parts: each batch staged in pageable
+    memory, uploaded blocking, decoded, checked and read back page by
+    page before the next batch is staged."""
+    from brotlig_tpu_torch.format.headers import parse_container
+    from brotlig_tpu_torch.ops.decode import decode_batch, staged_batches
+    info = parse_container(blob)
+    ps = info.header.page_size
+    out = bytearray(info.out_size)
+    for i in info.raw_page_indices():
+        off, n = int(info.offsets[i]), info.page_out_sizes[i]
+        out[i * ps: i * ps + n] = blob[off: off + n]
+    for group, staged in staged_batches(blob, info, BATCH, dev):
+        pages, _, status = decode_batch(staged, ps)
+        if bool((status != 0).any()):
+            raise ValueError("corrupt stream")
+        pages_np = pages.cpu().numpy()
+        for row, i in enumerate(group):
+            n = info.page_out_sizes[i]
+            out[i * ps: i * ps + n] = pages_np[row, :n].tobytes()
+    return bytes(out)
+
+
+def host_breakdown(blob: bytes, dev) -> dict:
+    """One decode of a container through the pipeline's parts, each stage
+    timed alone on the host clock with the card synchronised after it,
+    summed over the batches (ms): parse and hints, staging (into
+    page-locked memory), upload, kernels (tables and fused decode),
+    readback (into page-locked memory), assembly, and the final copy to
+    bytes."""
+    import numpy as np
+    import torch
+    from brotlig_tpu_torch.format.headers import parse_container
+    from brotlig_tpu_torch.ops.decode import (batch_plan, compressed_jobs,
+                                              decode_batch)
+    from brotlig_tpu_torch.state import StagingBuffers, Streams
+    t = {k: 0.0 for k in ("parse and hints", "staging", "upload", "kernels",
+                          "readback", "assembly", "to bytes")}
+    clock = time.perf_counter
+    torch.cuda.synchronize()
+    t0 = clock()
+    info = parse_container(blob)
+    ps = info.header.page_size
+    comp, offs, szs = compressed_jobs(info)
+    wl, batches = batch_plan(blob, offs, szs, BATCH)
+    out = bytearray(info.out_size)
+    out_np = np.frombuffer(out, np.uint8)
+    t["parse and hints"] += clock() - t0
+    st = Streams(dev)
+    bufs = StagingBuffers(st, wl * 32 // 128, BATCH)
+    back = st.host_empty(BATCH * ps, torch.uint8)
+    for b in batches:
+        t0 = clock()
+        buf3, npd = bufs.stage(blob, offs[b], szs[b], wl)
+        t1 = clock()
+        staged, _ = bufs.upload(buf3, npd)
+        torch.cuda.synchronize()
+        t2 = clock()
+        pages, _, status = decode_batch(staged, ps)
+        torch.cuda.synchronize()
+        t3 = clock()
+        host = back[: len(b) * ps].view(len(b), ps)
+        host.copy_(pages, non_blocking=True)
+        if bool((status != 0).any()):
+            raise ValueError("corrupt stream")
+        torch.cuda.synchronize()
+        t4 = clock()
+        rows = host.numpy()
+        for row, i in enumerate(comp[b]):
+            n = info.page_out_sizes[i]
+            out_np[i * ps: i * ps + n] = rows[row, :n]
+        t5 = clock()
+        for k, dt in zip(("staging", "upload", "kernels", "readback",
+                          "assembly"), (t1 - t0, t2 - t1, t3 - t2, t4 - t3,
+                                        t5 - t4)):
+            t[k] += dt
+    t0 = clock()
+    res = bytes(out)
+    t["to bytes"] += clock() - t0
+    if len(res) != info.out_size:
+        raise AssertionError("breakdown decode lost bytes")
+    return {k: round(v * 1e3, 3) for k, v in t.items()}
+
+
+def pipeline_never_syncs(blob: bytes, dev) -> None:
+    """decode_batches over a container with torch's sync debug mode set
+    to raise: the batch loop makes no synchronising torch call (it waits
+    only on its readback events, in the drain)."""
+    import torch
+    from brotlig_tpu_torch.format.headers import parse_container
+    from brotlig_tpu_torch.ops.decode import compressed_jobs, decode_batches
+    info = parse_container(blob)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        decode_batches(blob, *compressed_jobs(info), info.header.page_size,
+                       dev, lambda *a: None, BATCH)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def archive_pool(data: bytes, dev):
+    """64 small archives cut from the mixed corpus (20 KiB to 1.5 MiB, a
+    quarter at 32 KiB pages, q1) and four preconditioned textures, for
+    the pooled decode. Returns (datas, blobs)."""
+    import numpy as np
+    from brotlig_tpu_torch import native
+    from brotlig_tpu_torch.format import constants as FC
+    r = np.random.default_rng(11)
+    datas, blobs, pos = [], [], 0
+    for i in range(64):
+        n = int(r.integers(20 << 10, 3 << 19))
+        if pos + n > len(data):
+            pos = 0
+        datas.append(data[pos: pos + n])
+        pos += n
+        blobs.append(native.encode(datas[-1], quality=1,
+                                   page_size=32768 if i % 4 == 3 else PAGE))
+    for i, (w, h) in enumerate(((512, 512), (1024, 256), (256, 256),
+                                (1024, 1024))):
+        size = texture_size(FC.DATA_FORMAT_BC1, w, h, 1)
+        tex = make_bc1(w, h)
+        p = texture_params(FC.DATA_FORMAT_BC1, w, h, 1, i % 2 == 0, True,
+                           size)
+        datas.append(tex)
+        blobs.append(texture_container(tex, p, PAGE if i % 2 else 32768,
+                                       dev))
+    return datas, blobs
+
+
+def pool_batches(blobs) -> int:
+    """Batches the pooled decode must run: per page size, the compressed
+    pages over 256, rounded up."""
+    from brotlig_tpu_torch.format.headers import parse_container
+    by_ps: dict = {}
+    for b in blobs:
+        info = parse_container(b)
+        ps = info.header.page_size
+        by_ps[ps] = by_ps.get(ps, 0) + len(info.compressed_page_indices())
+    return sum(-(-n // BATCH) for n in by_ps.values())
 
 
 def main() -> int:
@@ -632,38 +990,112 @@ def main() -> int:
         print(f"[smoke] {name}, {pages} pages a launch: decode kernel "
               f"{k2_ms:.4f} ms, phase-A kernel {k4_ms:.4f} ms [{gpu}]",
               flush=True)
-    all_batches = sum(batches_of(b) for _, b in cases.values())
 
-    fused, _, torch_calls = drive(cases, [(nm, {}) for nm in names],
-                                  "fused")
-    print(f"[smoke] launches on the fused route: {fused} "
-          f"(once a batch: {all_batches} batches); torch calls "
-          f"{torch_calls}", flush=True)
-    if fused != {"tables": all_batches, "decode": all_batches,
-                 "phase_a": 0, "sweep": 0} or any(torch_calls.values()):
-        raise AssertionError("the fused route did not launch its kernels "
-                             "once a batch, or ran torch table work")
+    # ---- preconditioned textures, built with the port's own code ----
+    t0 = time.perf_counter()
+    texs = textures(dev)
+    for name, (tex, blob, _, _) in texs.items():
+        info = parse_container(blob)
+        cases[name] = (tex, blob)
+        print(f"[smoke] texture {name}: {len(tex)} B -> {len(blob)} B, "
+              f"{len(info.compressed_page_indices())} compressed and "
+              f"{len(info.raw_page_indices())} raw pages", flush=True)
+    print(f"[smoke] textures built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    tex_names = list(texs)
 
-    runs = [(nm, {"variant": "two_phase", "sweep_cw": cw})
-            for cw in (128, 2048) for nm in names]
-    runs += [(names[0], {"variant": "two_phase", "sweep_cw": cw})
-             for cw in (512, 1024)]
-    two, by_cw, torch_calls = drive(cases, runs, "two-phase")
-    want_cw = {cw: all_batches if cw in (128, 2048)
-               else batches_of(blob16) for cw in SWEEP_CWS}
-    two_batches = sum(want_cw.values())
-    print(f"[smoke] launches on the two-phase route: {two}, sweep by "
-          f"width {by_cw} (once a batch: {two_batches} batches, by width "
-          f"{want_cw}); torch calls {torch_calls}", flush=True)
-    if two != {"tables": two_batches, "decode": 0, "phase_a": two_batches,
-               "sweep": two_batches} or by_cw != want_cw:
-        raise AssertionError("the two-phase route did not launch its "
-                             "kernels once a batch")
-    if any(torch_calls.values()):
-        raise AssertionError(f"the two-phase route ran torch table work or "
-                             f"the middle stage: {torch_calls}")
+    # ---- the main path, each route, launch counts checked ----
+    launched = {}
+    for what, runs in (
+            ("fused", [(nm, {}) for nm in names]),
+            ("two-phase",
+             [(nm, {"variant": "two_phase", "sweep_cw": cw})
+              for cw in (128, 2048) for nm in names]
+             + [(names[0], {"variant": "two_phase", "sweep_cw": cw})
+                for cw in (512, 1024)]),
+            ("texture fused", [(nm, {}) for nm in tex_names]),
+            ("texture two-phase",
+             [(nm, {"variant": "two_phase", "sweep_cw": 1024})
+              for nm in tex_names])):
+        counts, by_cw, torch_calls = drive(cases, runs, what)
+        want, want_cw = want_launches(cases, runs)
+        print(f"[smoke] launches on the {what} runs: {counts}, sweep by "
+              f"width {by_cw} (once a batch: {want}, {want_cw}); torch "
+              f"calls {torch_calls}", flush=True)
+        if counts != want or by_cw != want_cw:
+            raise AssertionError(f"the {what} runs did not launch their "
+                                 "kernels once a batch")
+        if any(torch_calls.values()):
+            raise AssertionError(f"the {what} runs ran torch table work or "
+                                 f"the middle stage: {torch_calls}")
+        launched[what] = (counts, by_cw)
+    fused = {k: launched["fused"][0][k] + launched["texture fused"][0][k]
+             for k in launched["fused"][0]}
+    two = {k: launched["two-phase"][0][k]
+           + launched["texture two-phase"][0][k]
+           for k in launched["two-phase"][0]}
+    by_cw = {cw: launched["two-phase"][1][cw]
+             + launched["texture two-phase"][1][cw] for cw in SWEEP_CWS}
     if native.decode(blob16) != data16:
         raise AssertionError("native CPU decoder disagrees with the input")
+
+    # ---- the postprocess on the card against its plain version ----
+    post = {name: postprocess_phase(name, tex, blob, params, gpu)
+            for name, (tex, blob, params, _) in texs.items()
+            if parse_container(blob).compressed_page_indices()}
+
+    # ---- the pipeline: one container five times in a row, no sync ----
+    data64, blob64 = cases[names[1]]
+    _kernels.reset_launches()
+    for r in range(5):
+        if brotlig_tpu_torch.decode(blob64, device="cuda") != data64:
+            raise AssertionError(f"64 MiB q1 decode {r} differs")
+    counts = dict(_kernels.LAUNCHES)
+    nb = 5 * batches_of(blob64)
+    print(f"[smoke] 64 MiB q1 container decoded 5 times in a row, every "
+          f"run equal to the input; launches {counts} (once a batch: "
+          f"{nb})", flush=True)
+    if counts != {"tables": nb, "decode": nb, "phase_a": 0, "sweep": 0}:
+        raise AssertionError("the repeated decodes did not launch their "
+                             "kernels once a batch")
+    pipeline_never_syncs(blob64, dev)
+    print("[smoke] decode_batches over the 64 MiB q1 container under "
+          "torch.cuda.set_sync_debug_mode('error'): no synchronising call "
+          "in the batch loop", flush=True)
+
+    # ---- pooled archives ----
+    from brotlig_tpu_torch.parallel.runtime import decode_archives_batched
+    t0 = time.perf_counter()
+    datas, blobs = archive_pool(data64, dev)
+    print(f"[smoke] pool of {len(blobs)} archives ({sum(map(len, datas))} "
+          f"B, {len(blobs) - 64} preconditioned) built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    nb = pool_batches(blobs)
+    pool_ms = []
+    for r in range(3):
+        _kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = decode_archives_batched(blobs, device="cuda")
+        pool_ms.append((time.perf_counter() - t0) * 1e3)
+        pool = dict(_kernels.LAUNCHES)
+        if outs != datas:
+            raise AssertionError(f"pooled decode {r} differs from the "
+                                 "inputs")
+        if pool != {"tables": nb, "decode": nb, "phase_a": 0, "sweep": 0}:
+            raise AssertionError(f"pooled decode launched {pool}, want "
+                                 f"{nb} batches")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for blob, d in zip(blobs, datas):
+        if brotlig_tpu_torch.decode(blob, device="cuda") != d:
+            raise AssertionError("archive decoded alone differs")
+    each_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[smoke] pooled decode of {len(blobs)} archives == inputs: "
+          f"{nb} batches (compressed pages per page size over {BATCH}, "
+          f"rounded up), launches {pool}; "
+          f"{[round(t, 3) for t in pool_ms]} ms; the archives one by one "
+          f"{each_ms:.3f} ms [{gpu}]", flush=True)
 
     # ---- end to end, both routes in turns, and staging on its own ----
     e2e = {"fused": [], "two_phase": []}
@@ -691,6 +1123,58 @@ def main() -> int:
               f"[{gpu}]", flush=True)
     print(f"[smoke] host staging alone {min(stage) * 1e3:.3f} ms [{gpu}]",
           flush=True)
+
+    # ---- the pipeline against the serial order, in turns ----
+    for name in names[:2]:
+        data, blob = cases[name]
+        times = {"pipelined": [], "serial": []}
+        for r in range(5):
+            for mode in (("pipelined", "serial") if r % 2 else
+                         ("serial", "pipelined")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = (brotlig_tpu_torch.decode(blob, device="cuda")
+                       if mode == "pipelined" else decode_serial(blob, dev))
+                times[mode].append((time.perf_counter() - t0) * 1e3)
+                if got != data:
+                    raise AssertionError(f"{mode} decode of {name} differs")
+        meds = {m: float(np.median(t[1:])) for m, t in times.items()}
+        print(f"[smoke] end to end, fused route, {name} "
+              f"({batches_of(blob)} batches), in turns: "
+              + "; ".join(f"{m} {[round(t, 3) for t in ts]} ms (median of "
+                          f"warm runs {meds[m]:.3f} ms, "
+                          f"{len(data) / meds[m] / 1e6:.4f} GB/s)"
+                          for m, ts in times.items()) + f" [{gpu}]",
+              flush=True)
+        host_breakdown(blob, dev)
+        print(f"[smoke] host breakdown of one decode, {name}, stages alone "
+              f"with the card synchronised after each (ms): "
+              f"{json.dumps(host_breakdown(blob, dev))} [{gpu}]", flush=True)
+
+    # ---- the config-3 texture: bytes back, and kept on the card ----
+    name = tex_names[0]
+    tex, blob = cases[name]
+    times = {"host bytes": [], "device-resident": []}
+    for _ in range(4):
+        for mode in times:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = brotlig_tpu_torch.decode(
+                blob, device="cuda", return_device=mode != "host bytes")
+            if mode != "host bytes":
+                torch.cuda.synchronize()
+            times[mode].append((time.perf_counter() - t0) * 1e3)
+            if mode != "host bytes":
+                got = got.cpu().numpy().tobytes()
+            if got != tex:
+                raise AssertionError(f"timed texture decode ({mode}) "
+                                     "differs")
+    print(f"[smoke] {name}, fused route, end to end: " + "; ".join(
+        f"{m} {[round(t, 3) for t in ts]} ms -> "
+        f"{len(tex) / float(np.median(ts[1:])) / 1e6:.4f} GB/s (median of "
+        f"warm runs)" for m, ts in times.items())
+        + f"; postprocess alone {post[name]['ms']:.4f} ms, bound "
+        f"{post[name]['bound_ms']:.4f} ms [{gpu}]", flush=True)
 
     src = "brotlig_tpu_torch/csrc/"
     pallas = "brotlig_tpu/ops/pallas_decode.py"

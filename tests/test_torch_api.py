@@ -37,7 +37,11 @@ def test_import_pulls_in_no_jax():
     for path in _port_sources()[1:]:
         mod = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
         mods.append(mod.removesuffix(".__init__"))
-    assert "brotlig_tpu_torch.ops.sweep_kernel" in mods
+    for m in ("brotlig_tpu_torch.ops.sweep_kernel",
+              "brotlig_tpu_torch.ops.precondition",
+              "brotlig_tpu_torch.parallel",
+              "brotlig_tpu_torch.parallel.runtime"):
+        assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', "
@@ -79,7 +83,7 @@ def test_cuda_device_without_gpu_raises():
         brotlig_tpu_torch.decode(blob)          # the default device
 
 
-def test_preconditioned_raises_not_implemented():
+def test_preconditioned_container_decodes():
     rng = np.random.default_rng(1)
     size = 32 * 32 * 8                      # 128x128 BC1: 32x32 blocks
     tex = ((rng.integers(0, 8, size=size) + np.arange(size) // 64) % 256) \
@@ -90,8 +94,7 @@ def test_preconditioned_raises_not_implemented():
         num_mip_levels=1)
     blob = encode(tex, page_size=C.MIN_PAGE_SIZE, dc_params=p)
     assert parse_container(blob).dc_params is not None
-    with pytest.raises(NotImplementedError, match="preconditioned"):
-        brotlig_tpu_torch.decode(blob, device="cpu")
+    assert brotlig_tpu_torch.decode(blob, device="cpu") == tex
 
 
 def test_bad_magic_same_error_as_jax_package():

@@ -157,3 +157,44 @@ def test_short_last_batch_and_feedback():
     assert seen == [400 / 6, 100.0]
     with pytest.raises(Aborted):
         decode_stream(blob, "cpu", batch_pages=4, feedback=lambda p: True)
+
+
+def test_pipeline_order_feedback_and_abort(monkeypatch):
+    """Ten compressed pages in five batches of two: each batch is staged
+    while the batch before it is the last launched, batches drain two
+    behind their launch and in order, the feedback values are those of
+    decode_stream_jax (drained * 100 / n), an abort at the third drain
+    raises, and the next decode is whole again."""
+    from brotlig_tpu_torch import state
+    data = b"".join(make_data("repetitive", PS, seed=i) for i in range(10))
+    blob = native.encode(data, page_size=PS)
+    n = len(parse_container(blob).compressed_page_indices())
+    assert n == 10
+    log = []
+    stage, launch = state.StagingBuffers.stage, TD.decode_batch
+
+    def logged(name, fn):
+        def run(*args, **kwargs):
+            log.append(name)
+            return fn(*args, **kwargs)
+        return run
+    monkeypatch.setattr(state.StagingBuffers, "stage", logged("stage", stage))
+    monkeypatch.setattr(TD, "decode_batch", logged("launch", launch))
+    seen = []
+
+    def feedback(p):
+        log.append("drain")
+        seen.append(p)
+        return False
+    assert decode_stream(blob, "cpu", batch_pages=2, feedback=feedback) \
+        == data
+    assert seen == [d * 100.0 / n for d in (2, 4, 6, 8, 10)]
+    sl = ["stage", "launch"]
+    assert log == sl * 3 + ["drain"] + sl + ["drain"] + sl + ["drain"] * 3
+
+    calls = []
+    with pytest.raises(Aborted):
+        decode_stream(blob, "cpu", batch_pages=2,
+                      feedback=lambda p: (calls.append(p), len(calls) == 3)[1])
+    assert calls == seen[:3]
+    assert decode_stream(blob, "cpu", batch_pages=2) == data

@@ -276,3 +276,89 @@ def test_two_phase_garbage_pages_flagged_not_hung(cuda_dev):
                                  cw)
         assert out.shape == (P, S)
     torch.cuda.synchronize()
+
+
+def texture_container(swizzle_delta: bool = True):
+    """A 256 x 256 BC5 texture with two mips (80 KiB, three 32 KiB pages)
+    and its preconditioned container, from the JAX package's pure-Python
+    encoder."""
+    from brotlig_tpu.format import constants as C
+    from brotlig_tpu.format.precondition import DataConditionParams
+    from brotlig_tpu.refimpl.codec import encode
+    rng = np.random.default_rng(0)
+    size = 16 * (64 * 64 + 32 * 32)
+    tex = ((rng.integers(0, 8, size) + np.arange(size) // 64 % 32)
+           .astype(np.uint8).tobytes())
+    p = DataConditionParams(precondition=True, swizzle=swizzle_delta,
+                            delta_encode=swizzle_delta,
+                            format=C.DATA_FORMAT_BC5, width_in_pixels=256,
+                            height_in_pixels=256, num_mip_levels=2)
+    return tex, encode(tex, page_size=32768, dc_params=p)
+
+
+@pytest.mark.parametrize("variant", ["fused", "two_phase"])
+def test_preconditioned_decode_cuda(cuda_dev, variant):
+    """Decoded and deconditioned on the card, in batches of two pages,
+    through the device plane: equal to the texture, each kernel of the
+    route launched once a batch; returned on the card on request."""
+    tex, blob = texture_container()
+    _kernels.reset_launches()
+    got = decode_mod.decode_stream(blob, "cuda", batch_pages=2,
+                                   variant=variant)
+    assert got == tex
+    assert _kernels.LAUNCHES["tables"] == 2
+    assert _kernels.LAUNCHES["decode" if variant == "fused"
+                             else "phase_a"] == 2
+    res = decode(blob, device="cuda", variant=variant, return_device=True)
+    assert res.is_cuda and res.cpu().numpy().tobytes() == tex
+
+
+def test_pipeline_loop_makes_no_synchronising_call(cuda_dev):
+    """decode_batches over three batches with torch's sync debug mode set
+    to raise: the loop waits on the card only through its events."""
+    data, blob = container(65536)
+    comp, offs, sizes = decode_mod.compressed_jobs(parse_container(blob))
+    out = {}
+
+    def drain(keys, pages, isdelta):
+        for row, i in enumerate(keys):
+            out[int(i)] = pages[row].tobytes()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        decode_mod.decode_batches(blob, comp, offs, sizes, 65536, cuda_dev,
+                                  drain, batch_pages=2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert sorted(out) == sorted(comp.tolist())
+    for i in comp:
+        assert out[int(i)] == data[i * 65536:(i + 1) * 65536]
+
+
+def test_decode_archives_batched_cuda(cuda_dev):
+    from brotlig_tpu_torch.parallel.runtime import decode_archives_batched
+    tex, tblob = texture_container()
+    datas = [make_data(k, 40_000 + 9000 * i, seed=i)
+             for i, k in enumerate(KINDS)] + [tex]
+    blobs = [native.encode(d, page_size=32768) for d in datas[:-1]] + [tblob]
+    _kernels.reset_launches()
+    assert decode_archives_batched(blobs, batch_pages=4,
+                                   device="cuda") == datas
+    n = sum(len(parse_container(b).compressed_page_indices())
+            for b in blobs)
+    assert _kernels.LAUNCHES["decode"] == -(-n // 4)
+
+
+def test_abort_mid_pipeline_then_clean_decode(cuda_dev):
+    """An abort raised in the second drain, with later batches still in
+    flight on the card, leaves the next decode whole."""
+    from brotlig_tpu_torch.format.errors import Aborted
+    data, blob = container(32768)
+    seen = []
+    with pytest.raises(Aborted):
+        decode_mod.decode_stream(
+            blob, "cuda", batch_pages=1,
+            feedback=lambda p: (seen.append(p), len(seen) == 2)[1])
+    assert len(seen) == 2
+    for _ in range(2):
+        assert decode_mod.decode_stream(blob, "cuda", batch_pages=1) == data
