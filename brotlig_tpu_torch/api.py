@@ -1,18 +1,68 @@
-"""Public decode API of the PyTorch/CUDA port (mirrors brotlig_tpu.api).
+"""Public API of the PyTorch/CUDA port (mirrors brotlig_tpu.api).
 
+encode()              -> device match finding (+ device or native packing)
 decode()              -> batched page decode on a torch device
 decompressed_size()   -> header-only size query
 max_compressed_size() -> one-shot output buffer bound
 """
 from __future__ import annotations
 
+from . import native
 from .format import constants as C
 from .format.headers import StreamHeader
+from .format.precondition import DataConditionParams
 from .ops.decode import decode_stream
+from .ops.encode import encode_stream
+from .ops.encode_pack import encode_stream_full
 
-__all__ = ["decode", "decompressed_size", "max_compressed_size"]
+__all__ = ["encode", "decode", "decompressed_size", "max_compressed_size"]
 
 max_compressed_size = C.max_compressed_size
+ENCODE_BACKENDS = ("hybrid", "full", "native")
+
+
+def encode(data: bytes, page_size: int = C.DEFAULT_PAGE_SIZE,
+           dc_params: DataConditionParams | None = None,
+           max_chain: int = 64, feedback=None, backend: str = "hybrid",
+           quality: int = 11, device="cuda") -> bytes:
+    """Compress a Brotli-G container.
+
+    backend:
+    - "hybrid" (the default; brotlig_tpu's "tpu"): bulk match finding on
+      `device`, serialization by the native C++ packer. It always parses
+      greedily, whatever `quality` says, so its ratio is below the native
+      q11 encoder's.
+    - "full" (brotlig_tpu's "tpu-full"): match finding AND serialization
+      on `device`. quality < 10 is the greedy q1 tier; quality >= 10 needs
+      the windowed-DP parse, which the port does not have yet, and raises
+      NotImplementedError (it never quietly parses greedily instead).
+    - "native" (brotlig_tpu's "cpu"): the native C++ encoder on the host;
+      quality >= 10 is its two-pass optimal parse. It has no
+      preconditioning: with dc_params it raises ValueError (brotlig_tpu
+      falls back to its Python encoder there, which the port does not
+      have).
+
+    `device` is where the device backends run: "cuda" raises when torch
+    has no CUDA device, "cpu" runs the same torch ops on the host.
+    `dc_params` enables BCn preconditioning (conditioned and delta-encoded
+    on `device`). feedback(msg_type, text) -> bool mirrors
+    BROTLIG_Feedback_Proc: called per page batch on the device backends
+    and per page by the native encoder; returning True raises
+    format.errors.Aborted."""
+    if backend == "hybrid":
+        return encode_stream(data, page_size=page_size, dc_params=dc_params,
+                             feedback=feedback, device=device)
+    if backend == "full":
+        return encode_stream_full(data, page_size=page_size,
+                                  dc_params=dc_params, feedback=feedback,
+                                  quality=quality, device=device)
+    if backend == "native":
+        if dc_params is not None:
+            raise ValueError("the native encoder has no preconditioning; "
+                             "use backend 'hybrid' or 'full' for dc_params")
+        return native.encode(data, page_size=page_size, max_chain=max_chain,
+                             quality=quality, feedback=feedback)
+    raise ValueError(f"backend={backend!r} not in {ENCODE_BACKENDS}")
 
 
 def decode(data: bytes, device="cuda", feedback=None,

@@ -1,5 +1,5 @@
-"""Multi-archive decode (port of the decode half of
-brotlig_tpu/parallel/runtime.py).
+"""Multi-archive decode and encode (port of brotlig_tpu/parallel/runtime.py
+on one process's share; the cross-process gathers are not ported yet).
 
 Archives are assigned to processes statically, archive i to process
 i % nprocs: the deterministic schedule that replaces the reference's
@@ -20,6 +20,7 @@ from typing import Sequence
 
 import numpy as np
 
+from .. import api
 from ..format.headers import parse_container
 from ..ops.decode import (_check_opts, decode_batches, decode_stream,
                           resolve_device)
@@ -138,3 +139,14 @@ def decode_archives_batched(blobs: Sequence[bytes], batch_pages: int = 256,
         else:
             results.append(bytes(outs[ai]))
     return results
+
+
+def encode_archives(datas: Sequence[bytes], page_size: int = 65536,
+                    process=None, quality: int = 11,
+                    device="cuda") -> dict[int, bytes]:
+    """Encode this process's share of `datas` with api.encode's default
+    route, the hybrid, on `device` (which parses greedily whatever
+    `quality` says). Returns {archive_index: container}."""
+    return {i: api.encode(datas[i], page_size=page_size, quality=quality,
+                          device=device)
+            for i in my_archive_indices(len(datas), process)}

@@ -33,6 +33,17 @@ and one by one. End to end: both routes in turns, the pipeline against
 the serial order it replaced, a per-stage host breakdown, and the
 config-3 texture to host bytes and kept on the card.
 
+Then it encodes on the card (the encoders are torch ops, no kernel of
+their own): the full-device q1 path, encode_pages_device(quality=1), on
+32 pages of the corpus, its matcher, serializer and host stages timed,
+its aten ops, CUDA kernels and peak memory counted, and every 4th page's
+commands and bytes held to the plain CPU run (tolerance 0); the hybrid,
+brotlig_tpu_torch.encode, on the 16 MiB corpus beside the native q11
+ratio; the config-3 texture by both encode routes; and a round trip
+through python -m brotlig_tpu_torch.cli --device cuda. Every stream
+encoded on the card is decoded on the card on both routes, with the
+launch counts checked, and those launches join the kernels line.
+
 Progress goes to earlier lines; the line before the last is the card's
 name and power limit, the last line a JSON verdict. Any failure raises
 and exits non-zero; without a CUDA device it exits non-zero before
@@ -862,6 +873,272 @@ def pool_batches(blobs) -> int:
     return sum(-(-n // BATCH) for n in by_ps.values())
 
 
+# ---------------------------------------------------------------------------
+# Encode on the card: the device matcher and serializer (the q1 tier), the
+# hybrid route, preconditioned textures and the command line
+# ---------------------------------------------------------------------------
+
+ENC_STRIDE = 8       # bench.py's encode subset (bench.py:622-645): every
+ENC_PAGES = 32       # 8th page of the 256-page corpus, 32 pages
+ENC_CHECK = 4        # every 4th of those pages is also encoded on the CPU
+ENC_REPS = 3
+
+
+def device_work(fn) -> dict:
+    """What one call of fn asks of the card: the aten ops it dispatches,
+    the CUDA kernels torch.profiler traces (None where the trace holds no
+    device event) and those kernels' summed device ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Ops.n += 1
+            return func(*args, **(kwargs or {}))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with Ops():
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    return {"aten_ops": Ops.n, "kernels": len(kernels) or None,
+            "kernel_ms": (sum(e.device_time_total for e in kernels) / 1e3
+                          if kernels else None)}
+
+
+def container_of(blobs, page: int) -> bytes:
+    """A non-preconditioned container of full pages from their blobs."""
+    from brotlig_tpu_torch.format.headers import StreamHeader, pack_page_table
+    return (StreamHeader.for_input(len(blobs) * page, page, False).pack()
+            + pack_page_table([len(b) for b in blobs]) + b"".join(blobs))
+
+
+def decode_on_card(blob: bytes, data: bytes, what: str) -> dict:
+    """Decode blob on the card on the fused route and the two-phase route
+    (sweep_cw 1024), each equal to data and launching every kernel of its
+    route once a batch; returns the launch counts by route."""
+    import brotlig_tpu_torch
+    from brotlig_tpu_torch import _kernels
+    nb = batches_of(blob)
+    counts = {}
+    for route, opts, want in (
+            ("fused", {},
+             {"tables": nb, "decode": nb, "phase_a": 0, "sweep": 0}),
+            ("two_phase", {"variant": "two_phase", "sweep_cw": 1024},
+             {"tables": nb, "decode": 0, "phase_a": nb, "sweep": nb})):
+        _kernels.reset_launches()
+        if brotlig_tpu_torch.decode(blob, device="cuda", **opts) != data:
+            raise AssertionError(f"{what}: decode on the card {opts} "
+                                 "differs from the input")
+        counts[route] = dict(_kernels.LAUNCHES)
+        if counts[route] != want:
+            raise AssertionError(f"{what}: decode {opts} launched "
+                                 f"{counts[route]}, want {want}")
+    print(f"[smoke] {what}: decodes on the card on both routes == input, "
+          f"launches {counts} ({nb} batches)", flush=True)
+    return counts
+
+
+def encode_q1_phase(data: bytes, dev, gpu) -> dict:
+    """The full-device q1 path, encode_pages_device(quality=1), on 32 pages
+    of the corpus: its stages timed (CUDA events around the matcher and
+    the serializer, the host clock around the whole), the commands and
+    page bytes of every 4th page held to the plain CPU run (tolerance 0),
+    every blob decoded by the native decoder, and the pages as a
+    container decoded on the card. Returns the decode launches."""
+    import numpy as np
+    import torch
+    from brotlig_tpu_torch import native
+    from brotlig_tpu_torch.ops.encode import find_commands
+    from brotlig_tpu_torch.ops.encode_pack import (command_bucket,
+                                                   encode_pages_device,
+                                                   pack_partitioned,
+                                                   page_blobs)
+    idx = list(range(0, len(data) // PAGE, ENC_STRIDE))[:ENC_PAGES]
+    arr = np.stack([np.frombuffer(data[i * PAGE:(i + 1) * PAGE], np.uint8)
+                    for i in idx])
+    sizes = np.full(len(idx), PAGE, np.int64)
+    isdelta = np.zeros(len(idx), np.int64)
+    max_cmds = PAGE // 4 + 16
+
+    def run():
+        """encode_pages_device's steps on the card, timed by stage."""
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pages = torch.from_numpy(arr).to(dev)
+        in_sizes = torch.from_numpy(sizes).to(dev)
+        flags = torch.from_numpy(isdelta).to(dev)
+        ev[0].record()
+        cmds = find_commands(pages, in_sizes, max_cmds, fast=True)
+        ev[1].record()
+        out, out_sizes = pack_partitioned(pages, in_sizes, PAGE, max_cmds,
+                                          *cmds, flags)
+        ev[2].record()
+        blobs = page_blobs(out.cpu().numpy(), out_sizes.cpu().numpy(),
+                           sizes, arr)
+        total = (time.perf_counter() - t0) * 1e3
+        ms = {"matcher": ev[0].elapsed_time(ev[1]),
+              "serializer": ev[1].elapsed_time(ev[2])}
+        ms["host"] = total - ms["matcher"] - ms["serializer"]
+        ms["total"] = total
+        return blobs, cmds, ms
+
+    blobs, cmds, _ = run()                                   # warm
+    if encode_pages_device(arr, sizes, PAGE, isdelta, quality=1,
+                           device="cuda") != blobs:
+        raise AssertionError("encode_pages_device differs from its steps")
+    runs = [run()[2] for _ in range(ENC_REPS)]
+    med = {k: float(np.median([r[k] for r in runs])) for k in runs[0]}
+    torch.cuda.reset_peak_memory_stats(dev)
+    work = device_work(run)
+    peak = torch.cuda.max_memory_allocated(dev)
+    pages = torch.from_numpy(arr).to(dev)
+    in_sizes = torch.from_numpy(sizes).to(dev)
+    flags = torch.from_numpy(isdelta).to(dev)
+    stage = {"matcher": device_work(
+        lambda: find_commands(pages, in_sizes, max_cmds, fast=True))}
+    stage["serializer"] = device_work(
+        lambda: pack_partitioned(pages, in_sizes, PAGE, max_cmds,
+                                 *[c.to(dev) for c in cmds], flags))
+    nbytes = len(idx) * PAGE
+    ratio = nbytes / sum(map(len, blobs))
+    buckets: dict = {}
+    for n in cmds[3].tolist():
+        b = command_bucket(n, max_cmds)
+        buckets[b] = buckets.get(b, 0) + 1
+    print(f"[smoke] full-device q1 encode (encode_pages_device, quality=1) "
+          f"of {len(idx)} x 64 KiB corpus pages (every {ENC_STRIDE}th) on "
+          f"the card, median of {ENC_REPS} warm runs: matcher "
+          f"{med['matcher']:.3f} ms, serializer {med['serializer']:.3f} ms, "
+          f"host {med['host']:.3f} ms, total {med['total']:.3f} ms -> "
+          f"{nbytes / med['total'] / 1e6:.4f} GB/s of input, ratio "
+          f"{ratio:.4f}; pages by command bucket "
+          f"{dict(sorted(buckets.items()))}; per batch {work['aten_ops']} "
+          f"aten ops, "
+          f"{work['kernels'] or 'not measured'} CUDA kernels "
+          f"({work['kernel_ms'] or 0:.3f} ms of kernel time); peak "
+          f"{peak / 2**20:.1f} MiB allocated [{gpu}]", flush=True)
+    for name, w in stage.items():
+        busy = (f"{w['kernel_ms']:.3f} ms of kernel time in "
+                f"{med[name]:.3f} ms, device idle "
+                f"{1 - w['kernel_ms'] / med[name]:.1%}"
+                if w["kernels"] else "kernel time not measured")
+        print(f"[smoke] full-device q1 {name} alone: {w['aten_ops']} aten "
+              f"ops, {w['kernels'] or 'not measured'} CUDA kernels, {busy} "
+              f"[{gpu}]", flush=True)
+    print(f"[smoke] full-device q1 runs (ms): "
+          f"{json.dumps([{k: round(v, 3) for k, v in r.items()} for r in runs])}"
+          f" [{gpu}]", flush=True)
+
+    # the plain run on the CPU, every 4th page (tolerance 0)
+    chk = list(range(0, len(idx), ENC_CHECK))
+    want = find_commands(torch.from_numpy(arr[chk]),
+                         torch.from_numpy(sizes[chk]), max_cmds, fast=True)
+    err = max_abs_err([c[chk].cpu() for c in cmds], want)
+    plain = encode_pages_device(arr[chk], sizes[chk], PAGE, isdelta[chk],
+                                quality=1, device="cpu")
+    if err != 0 or plain != [blobs[i] for i in chk]:
+        raise AssertionError(f"full-device q1: the card differs from the "
+                             f"plain CPU run (commands {err})")
+    for blob, page in zip(blobs, arr):
+        got = (page.tobytes() if len(blob) == PAGE
+               else native.decode_page(blob, PAGE))
+        if got != page.tobytes():
+            raise AssertionError("full-device q1: a blob does not decode")
+    print(f"[smoke] full-device q1: commands and page bytes of {len(chk)} "
+          f"pages == the plain CPU run (tolerance 0); all {len(idx)} blobs "
+          f"decode with the native decoder", flush=True)
+    sub = arr.tobytes()
+    return {"launches": decode_on_card(container_of(blobs, PAGE), sub,
+                                       "full-device q1 container"),
+            "matcher_ms": med["matcher"], "serializer_ms": med["serializer"],
+            "host_ms": med["host"], "total_ms": med["total"],
+            "gbps": nbytes / med["total"] / 1e6, "ratio": ratio,
+            "peak_mib": peak / 2**20, "stage": stage, **work}
+
+
+def hybrid_phase(data: bytes, native_blob: bytes, gpu) -> dict:
+    """brotlig_tpu_torch.encode (the hybrid: the matcher's exact tier on
+    the card, the native packer) on the 16 MiB corpus, timed, against the
+    native q11 blob's ratio; its stream decoded on the card."""
+    import numpy as np
+    import torch
+    import brotlig_tpu_torch
+    times, blobs = [], []
+    for _ in range(ENC_REPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blobs.append(brotlig_tpu_torch.encode(data, device="cuda"))
+        times.append((time.perf_counter() - t0) * 1e3)
+    if any(b != blobs[0] for b in blobs):
+        raise AssertionError("hybrid encode is not deterministic")
+    med = float(np.median(times[1:]))
+    ratio = len(data) / len(blobs[0])
+    print(f"[smoke] hybrid encode (brotlig_tpu_torch.encode, device "
+          f"'cuda') of the 16 MiB corpus: {[round(t, 3) for t in times]} "
+          f"ms -> {len(data) / med / 1e6:.4f} GB/s (median of warm runs), "
+          f"ratio {ratio:.4f}; native q11 ratio "
+          f"{len(data) / len(native_blob):.4f} [{gpu}]", flush=True)
+    return {"launches": decode_on_card(blobs[0], data, "hybrid stream"),
+            "ms": med, "ratio": ratio}
+
+
+def texture_encode_phase(name: str, tex: bytes, params, gpu) -> dict:
+    """The config-3 texture encoded on the card by the hybrid and by the
+    full route at q1 (conditioned and delta-encoded on the card), each
+    decoded on the card back to the texture."""
+    import torch
+    import brotlig_tpu_torch
+    launches = []
+    for backend, quality in (("hybrid", 11), ("full", 1)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blob = brotlig_tpu_torch.encode(tex, dc_params=params,
+                                        backend=backend, quality=quality,
+                                        device="cuda")
+        ms = (time.perf_counter() - t0) * 1e3
+        print(f"[smoke] {name}, {backend} encode (q{quality}) on the card: "
+              f"{ms:.1f} ms, ratio {len(tex) / len(blob):.4f} [{gpu}]",
+              flush=True)
+        launches.append(decode_on_card(blob, tex, f"{name}, {backend} "
+                                       "encode"))
+    return launches
+
+
+def cli_phase(data: bytes, gpu) -> None:
+    """Compress and decompress a file with python -m brotlig_tpu_torch.cli
+    --device cuda in subprocesses, in a directory of the checkout that is
+    removed after."""
+    import tempfile
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        with open(os.path.join(tmp, "in.bin"), "wb") as f:
+            f.write(data)
+        for args in (["in.bin"], ["in.bin.brotlig"]):
+            res = subprocess.run(
+                [sys.executable, "-m", "brotlig_tpu_torch.cli", *args,
+                 "--device", "cuda"], cwd=tmp, env=env, capture_output=True,
+                text=True, timeout=600)
+            if res.returncode != 0:
+                raise AssertionError(f"cli {args} exited {res.returncode}: "
+                                     f"{res.stderr[-2000:]}")
+            print("[smoke] cli " + " ".join(args) + ": "
+                  + "; ".join(res.stdout.strip().splitlines())
+                  + f" [{gpu}]", flush=True)
+        with open(os.path.join(tmp, "in.bin.out"), "rb") as f:
+            if f.read() != data:
+                raise AssertionError("cli round trip differs")
+    print(f"[smoke] cli round trip of {len(data)} B on the card == input",
+          flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1175,6 +1452,22 @@ def main() -> int:
         f"warm runs)" for m, ts in times.items())
         + f"; postprocess alone {post[name]['ms']:.4f} ms, bound "
         f"{post[name]['bound_ms']:.4f} ms [{gpu}]", flush=True)
+
+    # ---- encode on the card: full-device q1, hybrid, textures, the cli ----
+    t0 = time.perf_counter()
+    enc = encode_q1_phase(data16, dev, gpu)
+    hyb = hybrid_phase(data16, blob16, gpu)
+    name = tex_names[0]
+    tex, _, params, _ = texs[name]
+    tex_launches = texture_encode_phase(name, tex, params, gpu)
+    cli_phase(data16[:1 << 20], gpu)
+    for got in [enc["launches"], hyb["launches"]] + tex_launches:
+        for k in fused:
+            fused[k] += got["fused"][k]
+            two[k] += got["two_phase"][k]
+        by_cw[1024] += got["two_phase"]["sweep"]
+    print(f"[smoke] encode phases {time.perf_counter() - t0:.1f} s [{gpu}]",
+          flush=True)
 
     src = "brotlig_tpu_torch/csrc/"
     pallas = "brotlig_tpu/ops/pallas_decode.py"

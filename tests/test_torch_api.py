@@ -40,7 +40,11 @@ def test_import_pulls_in_no_jax():
     for m in ("brotlig_tpu_torch.ops.sweep_kernel",
               "brotlig_tpu_torch.ops.precondition",
               "brotlig_tpu_torch.parallel",
-              "brotlig_tpu_torch.parallel.runtime"):
+              "brotlig_tpu_torch.parallel.runtime",
+              "brotlig_tpu_torch.ops.encode",
+              "brotlig_tpu_torch.ops.encode_pack",
+              "brotlig_tpu_torch.cli",
+              "brotlig_tpu_torch.utils.brotli_codec"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

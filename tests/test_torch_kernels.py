@@ -362,3 +362,81 @@ def test_abort_mid_pipeline_then_clean_decode(cuda_dev):
     assert len(seen) == 2
     for _ in range(2):
         assert decode_mod.decode_stream(blob, "cuda", batch_pages=1) == data
+
+
+# ---- the encoders: torch ops, the same on the card as on the CPU ----
+
+def encode_rows(page_size: int = 65536):
+    """A batch of pages of every kind, a partial page and tiny rows."""
+    datas = [make_data(k, page_size, seed=i) for i, k in enumerate(KINDS)]
+    datas += [make_data("text", 20000, seed=9), b"xyz" * 40, b"Q", b""]
+    arr = np.zeros((len(datas), page_size), np.uint8)
+    sizes = np.zeros(len(datas), np.int32)
+    for i, d in enumerate(datas):
+        arr[i, :len(d)] = np.frombuffer(d, np.uint8)
+        sizes[i] = len(d)
+    return datas, arr, sizes
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_find_commands_card_equals_cpu(cuda_dev, fast):
+    from brotlig_tpu_torch.ops.encode import find_commands
+    _, arr, sizes = encode_rows()
+    S = arr.shape[1]
+    max_cmds = S // 4 + 16 if fast else S // 2 + 2
+    want = find_commands(torch.from_numpy(arr), torch.from_numpy(sizes),
+                         max_cmds, fast)
+    got = find_commands(torch.from_numpy(arr).to(cuda_dev),
+                        torch.from_numpy(sizes).to(cuda_dev), max_cmds, fast)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_encode_pages_device_card_equals_cpu(cuda_dev):
+    from brotlig_tpu_torch.ops.encode_pack import encode_pages_device
+    datas, arr, sizes = encode_rows()
+    isdelta = np.arange(len(datas)) % 2
+    want = encode_pages_device(arr, sizes, arr.shape[1], isdelta, quality=1,
+                               device="cpu")
+    got = encode_pages_device(arr, sizes, arr.shape[1], isdelta, quality=1,
+                              device=cuda_dev)
+    assert got == want
+
+
+@pytest.mark.parametrize("backend,quality", [("hybrid", 11), ("full", 1)])
+def test_encode_on_card_decodes_on_card(cuda_dev, backend, quality):
+    """A stream encoded on the card equals the CPU route's and decodes on
+    the card, every kernel of each route launched once a batch."""
+    from brotlig_tpu_torch import encode
+    data = b"".join(make_data(k, 65536, seed=i)
+                    for i, k in enumerate(KINDS)) + make_data("text", 777)
+    blob = encode(data, backend=backend, quality=quality, device="cuda")
+    assert blob == encode(data, backend=backend, quality=quality,
+                          device="cpu")
+    for variant, kernels in (("fused", ("tables", "decode")),
+                             ("two_phase", ("tables", "phase_a", "sweep"))):
+        _kernels.reset_launches()
+        assert decode(blob, device="cuda", variant=variant) == data
+        assert all(_kernels.LAUNCHES[k] == 1 for k in kernels)
+
+
+@pytest.mark.parametrize("backend,quality", [("hybrid", 11), ("full", 1)])
+def test_preconditioned_encode_on_card(cuda_dev, backend, quality):
+    from brotlig_tpu_torch import encode
+    from brotlig_tpu_torch.format import constants as C
+    from brotlig_tpu_torch.format.precondition import DataConditionParams
+    rng = np.random.default_rng(0)
+    size = 16 * (64 * 64 + 32 * 32)
+    tex = ((rng.integers(0, 8, size) + np.arange(size) // 64 % 32)
+           .astype(np.uint8).tobytes())
+
+    def params():
+        return DataConditionParams(
+            precondition=True, swizzle=True, delta_encode=True,
+            format=C.DATA_FORMAT_BC5, width_in_pixels=256,
+            height_in_pixels=256, num_mip_levels=2)
+    blob = encode(tex, page_size=32768, dc_params=params(), backend=backend,
+                  quality=quality, device="cuda")
+    assert blob == encode(tex, page_size=32768, dc_params=params(),
+                          backend=backend, quality=quality, device="cpu")
+    assert decode(blob, device="cuda") == tex
