@@ -30,12 +30,14 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libbrotlig_kernels.so")
-SOURCES = ("tables.cu", "decode.cu", "phase_a.cu", "sweep.cu")
+SOURCES = ("tables.cu", "decode.cu", "phase_a.cu", "sweep.cu",
+           "dp_parse.cu")
 HEADERS = ("lane_ops.cuh", "page_round.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-LAUNCHES = {"tables": 0, "decode": 0, "phase_a": 0, "sweep": 0}
+LAUNCHES = {"tables": 0, "decode": 0, "phase_a": 0, "sweep": 0,
+            "dp_parse": 0}
 SWEEP_LAUNCHES = {128: 0, 512: 0, 1024: 0, 2048: 0}
 
 _lock = threading.Lock()
@@ -123,6 +125,9 @@ def library():
         lib.blg_sweep.restype = i32
         lib.blg_sweep.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
                                   i32, vp, vp, vp]
+        lib.blg_dp_parse.restype = i32
+        lib.blg_dp_parse.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
+                                     i32, i32, vp, vp]
         _lib = lib
         return _lib
 

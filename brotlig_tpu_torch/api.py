@@ -33,9 +33,9 @@ def encode(data: bytes, page_size: int = C.DEFAULT_PAGE_SIZE,
       greedily, whatever `quality` says, so its ratio is below the native
       q11 encoder's.
     - "full" (brotlig_tpu's "tpu-full"): match finding AND serialization
-      on `device`. quality < 10 is the greedy q1 tier; quality >= 10 needs
-      the windowed-DP parse, which the port does not have yet, and raises
-      NotImplementedError (it never quietly parses greedily instead).
+      on `device`. quality < 10 is the greedy q1 tier; quality >= 10 adds
+      the windowed-DP optimal parse (its block loop a CUDA kernel on the
+      card), each page the smaller of the DP and the greedy parse.
     - "native" (brotlig_tpu's "cpu"): the native C++ encoder on the host;
       quality >= 10 is its two-pass optimal parse. It has no
       preconditioning: with dc_params it raises ValueError (brotlig_tpu

@@ -38,11 +38,11 @@ def build_parser() -> argparse.ArgumentParser:
                    default="hybrid",
                    help="hybrid: device match finding + native packer "
                         "(greedy); full: device match finding + device "
-                        "serialization (needs --quality below 10); "
-                        "native: the host C++ encoder")
+                        "serialization; native: the host C++ encoder")
     p.add_argument("--quality", type=int, default=11,
-                   help="encode quality (>= 10: optimal parse, native "
-                        "only; the hybrid is always greedy)")
+                   help="encode quality (>= 10: the optimal parse, on the "
+                        "device for full, on the host for native; the "
+                        "hybrid is always greedy)")
     p.add_argument("--num-repeat", type=int, default=1,
                    help="repeat codec N times and report the best")
     p.add_argument("--compare-brotli", action="store_true",

@@ -21,9 +21,10 @@ writes them.
 
 The arithmetic is int64: the hashes' 32-bit products are taken modulo
 2^32 explicitly (`_mul32`), so the CPU and the card run the same ops (no
-uint32 shift, which torch's CPU build lacks). The nearest-candidate
-exports and the 3-byte family of the JAX module feed only the windowed
-DP parse (`find_candidates`), which is not ported yet.
+uint32 shift, which torch's CPU build lacks). The windowed DP parse
+(ops/parse_dp.py) reads more than the longest match: `find_candidates`
+adds the nearest 4- and 8-byte-key predecessors and a 3-byte-key family
+of short copies, which the greedy parse never computes.
 """
 from __future__ import annotations
 
@@ -49,6 +50,8 @@ MAX_MATCH_WORDS = 16          # LCP probes 64 bytes per round
 MIN_MATCH = 4
 NUM_CANDIDATES = 16           # nearest same-hash predecessors probed
 NUM_CANDIDATES_8 = 4          # nearest probes in the 8-byte-key family
+NUM_NEAR = 3                  # 4-byte-key candidates exported to the DP
+NUM_NEAR_8 = 2                # 8-byte-key candidates exported to the DP
 FAST_PROBE_WORDS = 3          # fast tier: candidate ranking LCP cap 12 bytes
 EXT_ROUNDS = 3                # contiguous LCP cap = EXT_ROUNDS * 64 bytes
 
@@ -135,13 +138,16 @@ def _match_len_at(quads, cand, limit, off: int,
     return torch.where(valid, ml, 0)
 
 
-def _probe_family(quads, limit, h, nprobe: int, rank_words: int):
+def _probe_family(quads, limit, h, nprobe: int, rank_words: int,
+                  nnear: int = 0):
     """Rank the `nprobe` nearest same-hash predecessors of every position
     by an LCP capped at 4*rank_words bytes; returns (best_len, best_dist)
-    in position space. The stable sort groups positions by hash in
-    ascending position order, so rank r - k IS the k-th nearest
-    predecessor whenever its hash matches; the LCPs are compared in
-    sorted space, against the sorted words shifted by k."""
+    in position space, and with nnear > 0 also (near_len, near_dist)
+    [P, S, nnear]: probes 1..nnear (smallest distance first), the
+    distance 0 where the probe's length is. The stable sort groups
+    positions by hash in ascending position order, so rank r - k IS the
+    k-th nearest predecessor whenever its hash matches; the LCPs are
+    compared in sorted space, against the sorted words shifted by k."""
     S = quads.shape[1]
     h_sorted, order = torch.sort(h, dim=1, stable=True)
     inv = torch.empty_like(order).scatter_(
@@ -152,6 +158,7 @@ def _probe_family(quads, limit, h, nprobe: int, rank_words: int):
 
     best_len = torch.zeros_like(order)
     best_dist = torch.zeros_like(order)
+    near = []
     for k in range(1, nprobe + 1):
         same = h_sorted == _shift_right(h_sorted, k, -1)
         cand = _shift_right(order, k, 0)
@@ -165,17 +172,36 @@ def _probe_family(quads, limit, h, nprobe: int, rank_words: int):
             still = still & eq
         ml = torch.where(same, torch.minimum(ml, rem_s), 0)
         better = ml > best_len
+        if k <= nnear:
+            near.append((ml, torch.where(ml > 0, order - cand, 0)))
         best_len = torch.where(better, ml, best_len)
         best_dist = torch.where(better, order - cand, best_dist)
-    return torch.gather(best_len, 1, inv), torch.gather(best_dist, 1, inv)
+
+    def unsort(x):
+        return torch.gather(x, 1, inv)
+    if not nnear:
+        return unsort(best_len), unsort(best_dist)
+    return (unsort(best_len), unsort(best_dist),
+            torch.stack([unsort(m) for m, _ in near], dim=2),
+            torch.stack([unsort(d) for _, d in near], dim=2))
 
 
 def _scan_matches(pages: torch.Tensor, in_sizes: torch.Tensor,
-                  fast: bool = False):
+                  fast: bool = False, with_tri: bool = False):
     """Longest candidate per position, with the run-1 and log-depth chain
     extensions: (best_len, best_dist) [P, S] int64. fast=True is the q1
     tier: candidates are ranked over FAST_PROBE_WORDS words (12 bytes)
-    instead of 64 bytes."""
+    instead of 64 bytes.
+
+    with_tri=True (the exact tier, for the DP parse) returns (best_len,
+    best_dist, near_len, near_dist, (tri_len, tri_dist)) instead: near_*
+    [P, S, NUM_NEAR + NUM_NEAR_8] are the nearest 4-byte-key and then
+    8-byte-key probes, their lengths clipped to the page; tri_* [P, S, 2]
+    the two nearest 3-byte-key predecessors, lengths LCPs capped at 8
+    bytes and gated at >= 2 (the short copies the 4-byte families cannot
+    see; hash collisions gate out, since the LCP counts real bytes)."""
+    if with_tri and fast:
+        raise ValueError("the DP candidates come from the exact tier")
     P, S = pages.shape
     dev = pages.device
     limit = in_sizes.to(I64)[:, None]
@@ -190,15 +216,16 @@ def _scan_matches(pages: torch.Tensor, in_sizes: torch.Tensor,
     hq = _mul32(quads, HASH_MUL)
     h4 = torch.where(iota + MIN_MATCH <= limit, hq >> (32 - HASH_BITS),
                      tail_key)
-    best_len, best_dist = _probe_family(quads, limit, h4, NUM_CANDIDATES,
-                                        rank_words)
+    nnear = (NUM_NEAR, NUM_NEAR_8) if with_tri else (0, 0)
+    best_len, best_dist, *near4 = _probe_family(
+        quads, limit, h4, NUM_CANDIDATES, rank_words, nnear[0])
 
     # family 2: 8-byte keys, sparse groups whose nearest members reach far
     # back (the reference's deep hash chains at log-sort cost)
     h8 = (hq ^ _mul32(_shift_left(quads, 4), HASH_MUL_8)) >> (32 - HASH_BITS)
     h8 = torch.where(iota + 8 <= limit, h8, tail_key)
-    b8_len, b8_dist = _probe_family(quads, limit, h8, NUM_CANDIDATES_8,
-                                    rank_words)
+    b8_len, b8_dist, *near8 = _probe_family(
+        quads, limit, h8, NUM_CANDIDATES_8, rank_words, nnear[1])
     far_better = b8_len > best_len
     best_len = torch.where(far_better, b8_len, best_len)
     best_dist = torch.where(far_better, b8_dist, best_dist)
@@ -248,8 +275,41 @@ def _scan_matches(pages: torch.Tensor, in_sizes: torch.Tensor,
     term = (iota + capmax * cnt).clamp(max=S)
     ext_len = capmax * cnt + torch.gather(l_pad, 1, term)
     best_len = torch.where(cnt > 0, ext_len, best_len)
-    best_len = torch.minimum(best_len, (limit - iota).clamp(min=0))
-    return best_len, best_dist
+    room = (limit - iota).clamp(min=0)
+    best_len = torch.minimum(best_len, room)
+    if not with_tri:
+        return best_len, best_dist
+    near_len = torch.minimum(torch.cat([near4[0], near8[0]], dim=2),
+                             room[:, :, None])
+    near_dist = torch.cat([near4[1], near8[1]], dim=2)
+
+    # family 3: 3-byte keys, LCP cap 8 bytes (longer matches are the other
+    # families' job)
+    b = pages.to(I64)
+    tri = b | (_shift_left(b, 1) << 8) | (_shift_left(b, 2) << 16)
+    h3 = torch.where(iota + 3 <= limit,
+                     _mul32(tri, HASH_MUL_8) >> (32 - HASH_BITS), tail_key)
+    _, _, t_len, t_dist = _probe_family(quads, limit, h3, 2, 2, 2)
+    t_len = torch.minimum(torch.where(t_len >= 2, t_len, 0),
+                          room[:, :, None])
+    return best_len, best_dist, near_len, near_dist, (t_len, t_dist)
+
+
+def find_candidates(pages: torch.Tensor, in_sizes: torch.Tensor, cap: int):
+    """Per-position match candidates for the DP parse, on the pages'
+    device: slot 0 the longest match, then the nearest 4- and 8-byte-key
+    predecessors (smallest distance first), both gated at MIN_MATCH, then
+    the two 3-byte-key slots (gated at >= 2). Lengths are clipped to `cap`
+    (the DP's window). pages: uint8 [P, S]; in_sizes: [P]. Returns
+    (cand_len, cand_dist) [P, S, 8] int32."""
+    best_len, best_dist, near_len, near_dist, (t_len, t_dist) = \
+        _scan_matches(pages, in_sizes, with_tri=True)
+    cand_len = torch.cat([best_len.clamp(max=cap)[:, :, None],
+                          near_len.clamp(max=cap)], dim=2)
+    cand_len = torch.where(cand_len >= MIN_MATCH, cand_len, 0)
+    cand_len = torch.cat([cand_len, t_len.clamp(max=cap)], dim=2)
+    cand_dist = torch.cat([best_dist[:, :, None], near_dist, t_dist], dim=2)
+    return cand_len.to(torch.int32), cand_dist.to(torch.int32)
 
 
 def find_commands(pages: torch.Tensor, in_sizes: torch.Tensor,

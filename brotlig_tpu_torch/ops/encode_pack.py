@@ -48,10 +48,6 @@ A_LIT = C.NUM_LITERAL_SYMBOLS            # 256
 CL_ORDER = (1, 2, 3, 4, 0, 5, 17, 6, 16, 7, 8, 9, 10, 11, 12, 13, 14, 15)
 COST_FRAC_BITS = 16                      # fixed-point fraction of a bit
 BUCKET_MIN = 2048                        # smallest command-count bucket
-DP_NOT_PORTED = ("quality >= 10 needs the windowed DP parse "
-                 "(brotlig_tpu/ops/parse_dp.py), which the port does not "
-                 "have yet; use quality < 10, or backend 'hybrid' or "
-                 "'native'")
 
 
 def _lshift(x: int, t: torch.Tensor) -> torch.Tensor:
@@ -226,6 +222,26 @@ def _ring_before(dist, valid):
     def back(k):
         return torch.gather(pv_ext, 1, (3 + t_exc - k).clamp(0, N + 2))
     return r0, back(1), back(2), back(3)
+
+
+def literal_cover(in_sizes, ins, cpy, valid, S: int):
+    """Where each byte of a page lies under its commands: (cmd_of [P, S],
+    the last command starting at or before the byte; covered [P, 1], the
+    bytes the commands cover; in_lit [P, S], the byte is a literal: in an
+    insert region or in the tail, and inside the page)."""
+    P, N = ins.shape
+    pos_idx = torch.arange(S, device=ins.device).expand(P, S).contiguous()
+    cov = ins + cpy
+    starts = torch.cumsum(cov, dim=1) - cov
+    starts_m = torch.where(valid, starts, 1 << 29)
+    cmd_of = (torch.searchsorted(starts_m, pos_idx, right=True) - 1
+              ).clamp(0, N - 1)
+    st_of = torch.gather(starts, 1, cmd_of)
+    ins_of = torch.gather(ins, 1, cmd_of)
+    covered = cov.sum(1)[:, None]
+    in_lit = (((pos_idx < st_of + ins_of) | (pos_idx >= covered))
+              & (pos_idx < in_sizes[:, None]))
+    return cmd_of, covered, in_lit
 
 
 def _suffix_min(x: torch.Tensor) -> torch.Tensor:
@@ -603,19 +619,8 @@ def pack_pages_device(pages, in_sizes, ins, cpy, dist, ncmds,
     hist_cmd[:, 704] += 1
     hist_dst = _histogram(fields["dsym"][0], fields["sdist"][0] > 0, A_DST)
 
-    # literal histogram over the insert regions and the tail: a position's
-    # covering command is the last one starting at or before it
-    pos_idx = torch.arange(S, device=dev).expand(P, S).contiguous()
-    cov = ins + cpy
-    starts = torch.cumsum(cov, dim=1) - cov
-    starts_m = torch.where(valid, starts, 1 << 29)
-    cmd_of = (torch.searchsorted(starts_m, pos_idx, right=True) - 1
-              ).clamp(0, N - 1)
-    st_of = torch.gather(starts, 1, cmd_of)
-    ins_of = torch.gather(ins, 1, cmd_of)
-    covered = cov.sum(1)[:, None]
-    in_lit = (((pos_idx < st_of + ins_of) | (pos_idx >= covered))
-              & (pos_idx < in_sizes[:, None]))
+    # literal histogram over the insert regions and the tail
+    _, _, in_lit = literal_cover(in_sizes, ins, cpy, valid, S)
     page_bytes = pages.to(I64)
     hist_lit = _histogram(page_bytes, in_lit, A_LIT)
     n_lits = hist_lit.sum(1)
@@ -854,16 +859,16 @@ def page_blobs(out, out_sizes, in_sizes, raw_pages):
 def encode_pages_device(pages_np, in_sizes_np, page_size: int,
                         isdelta_np=None, raw_pages_np=None,
                         quality: int = 11, device="cuda"):
-    """Page encode on `device`: the bulk matcher's fast (q1) tier and the
-    device serializer. Returns a list of page blobs: the compressed page,
-    or the raw page bytes when not smaller. For preconditioned streams
-    pages_np holds the delta-encoded form and raw_pages_np the
-    conditioned non-delta form that a raw page stores (the decoder
-    skips the delta decode on raw pages).
-
-    quality >= 10 (the windowed-DP tier) raises NotImplementedError."""
-    if quality >= 10:
-        raise NotImplementedError(DP_NOT_PORTED)
+    """Page encode on `device`: the bulk matcher and the device serializer.
+    quality < 10 packs the matcher's fast (q1) tier's greedy parse;
+    quality >= 10 packs the exact tier's greedy parse, runs the windowed-DP
+    optimal parse (ops/parse_dp.py) seeded with it, packs that too, and
+    keeps the DP page where it is strictly smaller. Returns a list of page
+    blobs: the compressed page, or the raw page bytes when not smaller.
+    For preconditioned streams pages_np holds the delta-encoded form and
+    raw_pages_np the conditioned non-delta form that a raw page stores
+    (the decoder skips the delta decode on raw pages)."""
+    from .parse_dp import find_commands_dp   # parse_dp imports this module
     dev = resolve_device(device)
     max_cmds = page_size // 4 + 16   # every command copies >= MIN_MATCH = 4
     pages = torch.from_numpy(np.ascontiguousarray(pages_np)).to(dev)
@@ -871,9 +876,18 @@ def encode_pages_device(pages_np, in_sizes_np, page_size: int,
     if isdelta_np is None:
         isdelta_np = np.zeros(pages_np.shape[0], dtype=np.int64)
     isdelta = torch.from_numpy(np.asarray(isdelta_np, np.int64)).to(dev)
-    cmds = find_commands(pages, in_sizes, max_cmds, fast=True)
+    greedy = find_commands(pages, in_sizes, max_cmds, fast=quality < 10)
     out, sizes = pack_partitioned(pages, in_sizes, page_size, max_cmds,
-                                  *cmds, isdelta)
+                                  *greedy, isdelta)
+    if quality >= 10:
+        dcmds = find_commands_dp(pages, in_sizes, max_cmds,
+                                 greedy_cmds=greedy)
+        out2, sizes2 = pack_partitioned(
+            pages, in_sizes, page_size, max_cmds,
+            *(torch.from_numpy(x).to(dev) for x in dcmds), isdelta)
+        win = sizes2 < sizes
+        out = torch.where(win[:, None], out2, out)
+        sizes = torch.where(win, sizes2, sizes)
     raw = pages_np if raw_pages_np is None else raw_pages_np
     return page_blobs(out.cpu().numpy(), sizes.cpu().numpy(), in_sizes_np,
                       raw)
@@ -885,13 +899,11 @@ def encode_stream_full(data: bytes, page_size: int = 65536,
     """Container encode with match finding AND serialization on `device`
     (the native packer is not involved). `dc_params` enables BCn
     preconditioning, conditioned and delta-encoded on `device` too.
-    quality >= 10 (the windowed-DP tier) raises NotImplementedError; there
-    is no quiet fallback to the greedy parse.
+    quality >= 10 runs the windowed-DP optimal parse, each page the
+    smaller of it and the greedy parse (see encode_pages_device).
 
     feedback(msg_type, text) -> bool is called once per page batch;
     returning True raises format.errors.Aborted."""
-    if quality >= 10:
-        raise NotImplementedError(DP_NOT_PORTED)
     dev = resolve_device(device)
     header, precondition, raw_form, work, isdelta = stream_setup(
         data, page_size, dc_params, dev)

@@ -33,16 +33,24 @@ and one by one. End to end: both routes in turns, the pipeline against
 the serial order it replaced, a per-stage host breakdown, and the
 config-3 texture to host bytes and kept on the card.
 
-Then it encodes on the card (the encoders are torch ops, no kernel of
-their own): the full-device q1 path, encode_pages_device(quality=1), on
-32 pages of the corpus, its matcher, serializer and host stages timed,
-its aten ops, CUDA kernels and peak memory counted, and every 4th page's
+Then it encodes on the card (the matcher and the serializer are torch
+ops): the full-device q1 path, encode_pages_device(quality=1), on 32
+pages of the corpus, its matcher, serializer and host stages timed, its
+aten ops, CUDA kernels and peak memory counted, and every 4th page's
 commands and bytes held to the plain CPU run (tolerance 0); the hybrid,
 brotlig_tpu_torch.encode, on the 16 MiB corpus beside the native q11
-ratio; the config-3 texture by both encode routes; and a round trip
-through python -m brotlig_tpu_torch.cli --device cuda. Every stream
-encoded on the card is decoded on the card on both routes, with the
-launch counts checked, and those launches join the kernels line.
+ratio; the config-3 texture by both encode routes (the full route at q1
+and at q11, in 64-page batches, with its peak memory and DP launches); a
+round trip through python -m brotlig_tpu_torch.cli --device cuda; and
+the q11 path,
+encode_pages_device(quality=11), on 8 corpus pages: its windowed-DP
+kernel (csrc/dp_parse.cu) held to its plain version on the card and
+timed beside it and its bound, find_candidates and the cost model held
+to the CPU run, the entry point timed, its kernels, peak memory and DP
+kernel launches counted, its stages timed on a copy of its steps, and
+its ratio beside q1 and the native q11 encoder. Every
+stream encoded on the card is decoded on the card on both routes, with
+the launch counts checked, and those launches join the kernels line.
 
 Progress goes to earlier lines; the line before the last is the card's
 name and power limit, the last line a JSON verdict. Any failure raises
@@ -495,7 +503,8 @@ def want_launches(cases, runs) -> tuple:
     """The launch counts a list of (container, options) runs makes when
     every kernel of its route launches once a batch: (counts, sweep
     counts by width)."""
-    counts = {"tables": 0, "decode": 0, "phase_a": 0, "sweep": 0}
+    counts = {"tables": 0, "decode": 0, "phase_a": 0, "sweep": 0,
+              "dp_parse": 0}
     by_cw = dict.fromkeys(SWEEP_CWS, 0)
     for name, opts in runs:
         nb = batches_of(cases[name][1])
@@ -928,9 +937,11 @@ def decode_on_card(blob: bytes, data: bytes, what: str) -> dict:
     counts = {}
     for route, opts, want in (
             ("fused", {},
-             {"tables": nb, "decode": nb, "phase_a": 0, "sweep": 0}),
+             {"tables": nb, "decode": nb, "phase_a": 0, "sweep": 0,
+              "dp_parse": 0}),
             ("two_phase", {"variant": "two_phase", "sweep_cw": 1024},
-             {"tables": nb, "decode": 0, "phase_a": nb, "sweep": nb})):
+             {"tables": nb, "decode": 0, "phase_a": nb, "sweep": nb,
+              "dp_parse": 0})):
         _kernels.reset_launches()
         if brotlig_tpu_torch.decode(blob, device="cuda", **opts) != data:
             raise AssertionError(f"{what}: decode on the card {opts} "
@@ -1091,23 +1102,37 @@ def hybrid_phase(data: bytes, native_blob: bytes, gpu) -> dict:
 
 def texture_encode_phase(name: str, tex: bytes, params, gpu) -> dict:
     """The config-3 texture encoded on the card by the hybrid and by the
-    full route at q1 (conditioned and delta-encoded on the card), each
-    decoded on the card back to the texture."""
+    full route at q1 and at q11 (conditioned and delta-encoded on the
+    card; the full route in its default 64-page batches), each timed with
+    its peak device memory and DP kernel launches (iterations x batches
+    at q11, none otherwise) and decoded on the card back to the texture."""
     import torch
     import brotlig_tpu_torch
+    from brotlig_tpu_torch import _kernels
+    iters = int(os.environ.get("BLG_DP_ITERS", "3"))
+    nbatch = -(-len(tex) // PAGE // 64)
     launches = []
-    for backend, quality in (("hybrid", 11), ("full", 1)):
+    for backend, quality in (("hybrid", 11), ("full", 1), ("full", 11)):
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launches()
         t0 = time.perf_counter()
         blob = brotlig_tpu_torch.encode(tex, dc_params=params,
                                         backend=backend, quality=quality,
                                         device="cuda")
         ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        dp = _kernels.LAUNCHES["dp_parse"]
+        want = iters * nbatch if (backend, quality) == ("full", 11) else 0
+        if dp != want:
+            raise AssertionError(f"{name}, {backend} q{quality}: {dp} DP "
+                                 f"kernel launches, want {want}")
         print(f"[smoke] {name}, {backend} encode (q{quality}) on the card: "
-              f"{ms:.1f} ms, ratio {len(tex) / len(blob):.4f} [{gpu}]",
-              flush=True)
+              f"{ms:.1f} ms, ratio {len(tex) / len(blob):.4f}, peak "
+              f"{peak / 2**20:.1f} MiB allocated, DP kernel launches {dp} "
+              f"[{gpu}]", flush=True)
         launches.append(decode_on_card(blob, tex, f"{name}, {backend} "
-                                       "encode"))
+                                       f"encode (q{quality})"))
     return launches
 
 
@@ -1137,6 +1162,283 @@ def cli_phase(data: bytes, gpu) -> None:
                 raise AssertionError("cli round trip differs")
     print(f"[smoke] cli round trip of {len(data)} B on the card == input",
           flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Encode at q11 on the card: the windowed-DP parse and its kernel
+# ---------------------------------------------------------------------------
+
+Q11_PAGES = 8        # bench.py's encode_ratio_q11 cell (bench.py:612-648):
+                     # 8 pages at stride len(pages) // 8
+MODEL_CHECK = 2      # pages whose candidates and cost model the CPU repeats
+# operations a DP relax edge needs at least (two table reads, four adds,
+# two mins, the pack, the min into its target), and a closure a cell
+OPS_PER_EDGE = 10
+OPS_PER_CLOSURE_CELL = 10
+
+
+def dp_bound(ins, B: int, W: int, R: int) -> dict:
+    """The DP kernel's bound on these inputs: each input read once and the
+    output written once; the relaxes this data needs (each round, every
+    bucket-base edge whose source has a candidate that long and every
+    candidate's full-length edge, both inside the page) and the literal
+    closures (R + 1 a block)."""
+    import torch
+    from brotlig_tpu_torch.ops import parse_dp
+    litq, cand_len = ins[0], ins[1].long()
+    P, S = litq.shape
+    nbytes = sum(x.numel() * 4 for x in ins) + P * S * 4
+    node = torch.arange(S, device=litq.device)[None, :, None]
+    longest = cand_len.max(dim=2).values
+    pairs = sum(int(((longest >= L) & (node[:, :, 0] + L <= S)).sum())
+                for L in parse_dp.CPY_BASE if L <= W)
+    edges = int(((cand_len >= 2) & (node + cand_len <= S)).sum())
+    ops = (R * (pairs + edges) * OPS_PER_EDGE
+           + (R + 1) * P * S * OPS_PER_CLOSURE_CELL)
+    return {**bound(nbytes, ops), "edges": pairs + edges}
+
+
+def dp_launch(ins, B: int, W: int, R: int):
+    """The DP kernel's raw launch on (litq, cand_len, dpackq, jointEq,
+    jointLq)."""
+    import torch
+    from brotlig_tpu_torch import _kernels
+    P, S, K = ins[1].shape
+    out = torch.empty((P, S), dtype=torch.int32, device=ins[0].device)
+    run = raw_launch(_kernels.library().blg_dp_parse,
+                     [*ins, P, S, K, B, W, R, out], ins[0].device)
+    run.out = out
+    return run
+
+
+def q11_steps(arr, sizes, dev, iters: int):
+    """A copy of encode_pages_device(quality=11)'s steps on the card,
+    timed by stage (CUDA events around the device stages; the host clock
+    around the backtracks, which copy to the host, and around the whole):
+    the stage breakdown only, printed beside the entry point's own total
+    so that a gap between the two shows. Returns (blobs, ms by stage, the
+    first iteration's DP inputs)."""
+    import numpy as np
+    import torch
+    from brotlig_tpu_torch.ops import parse_dp
+    from brotlig_tpu_torch.ops.encode import find_candidates, find_commands
+    from brotlig_tpu_torch.ops.encode_pack import pack_partitioned, page_blobs
+    max_cmds = PAGE // 4 + 16
+    marks, host = [], {"backtrack": 0.0}
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pages = torch.from_numpy(arr).to(dev)
+    in_sizes = torch.from_numpy(sizes).to(dev)
+    flags = torch.zeros(len(arr), dtype=torch.int64, device=dev)
+    mark(None)
+    greedy = find_commands(pages, in_sizes, max_cmds)
+    mark("greedy matcher")
+    out, out_sizes = pack_partitioned(pages, in_sizes, PAGE, max_cmds,
+                                      *greedy, flags)
+    mark("greedy pack")
+    cand = find_candidates(pages, in_sizes, parse_dp.WINDOW)
+    mark("find_candidates")
+    cmds, first = greedy, None
+    sizes_np = in_sizes.cpu().numpy()
+    for _ in range(iters):
+        mark(None)
+        model = parse_dp.build_cost_model(pages, in_sizes, *cmds, *cand)
+        mark("cost model")
+        litq, jointEq, jointLq, cand_len, cand_dist, dpackq = model
+        first = first or (litq, cand_len, dpackq, jointEq, jointLq)
+        combined = parse_dp.dp_parse(litq, cand_len, dpackq, jointEq, jointLq,
+                                     parse_dp.BLOCK, parse_dp.WINDOW,
+                                     parse_dp.ROUNDS)
+        mark("kernel")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = parse_dp.backtrack(combined.cpu().numpy(),
+                                 cand_len.cpu().numpy(),
+                                 cand_dist.cpu().numpy(),
+                                 dpackq.cpu().numpy(), sizes_np, max_cmds)
+        for p in np.nonzero(got[3] < 0)[0]:
+            for new, old in zip(got, greedy):
+                new[p] = old[p].cpu().numpy()
+        cmds = tuple(torch.from_numpy(x).to(dev) for x in got)
+        host["backtrack"] += (time.perf_counter() - t1) * 1e3
+    mark(None)
+    out2, sizes2 = pack_partitioned(pages, in_sizes, PAGE, max_cmds, *cmds,
+                                    flags)
+    mark("DP pack")
+    win = sizes2 < out_sizes
+    blobs = page_blobs(torch.where(win[:, None], out2, out).cpu().numpy(),
+                       torch.where(win, sizes2, out_sizes).cpu().numpy(),
+                       sizes, arr)
+    total = (time.perf_counter() - t0) * 1e3
+    ms = dict.fromkeys(["greedy matcher", "greedy pack", "find_candidates",
+                        "cost model", "kernel", "DP pack"], 0.0)
+    for (_, a), (name, b) in zip(marks, marks[1:]):
+        if name is not None:
+            ms[name] += a.elapsed_time(b)
+    ms.update(host)
+    ms["host"] = total - sum(ms.values())
+    ms["total"] = total
+    return blobs, ms, first
+
+
+def q11_phase(data: bytes, dev, gpu) -> dict:
+    """The full-device q11 path, encode_pages_device(quality=11), on 8
+    corpus pages: the DP kernel held to its plain version on the card
+    (tolerance 0) and timed beside it and its bound; find_candidates and
+    build_cost_model on 2 pages held to the CPU run (tolerance 0); the
+    entry point timed over warm runs, with its DP kernel launches counted
+    (iterations x runs, no plain dp_parse), its CUDA kernels and its peak
+    memory; the stage breakdown from q11_steps; its ratio against q1
+    and the native q11 encoder; every blob decoded by the native decoder
+    and, as a container, on the card on both routes."""
+    import numpy as np
+    import torch
+    from brotlig_tpu_torch import _kernels, native
+    from brotlig_tpu_torch.ops import parse_dp
+    from brotlig_tpu_torch.ops.encode import find_candidates, find_commands
+    from brotlig_tpu_torch.ops.encode_pack import encode_pages_device
+    npages = len(data) // PAGE
+    idx = list(range(0, npages, max(1, npages // Q11_PAGES)))[:Q11_PAGES]
+    arr = np.stack([np.frombuffer(data[i * PAGE:(i + 1) * PAGE], np.uint8)
+                    for i in idx])
+    sizes = np.full(len(idx), PAGE, np.int64)
+    iters = int(os.environ.get("BLG_DP_ITERS", "3"))
+    B, W, R = parse_dp.BLOCK, parse_dp.WINDOW, parse_dp.ROUNDS
+
+    # the float32 unseen-symbol cost: the card's log2 against the CPU's
+    total = torch.arange(1, 1 << 18)
+    for pad in (2.0, 4.0):
+        if not torch.equal(
+                torch.round(2 * parse_dp.unseen_bits(total.to(dev), pad))
+                .cpu(), torch.round(2 * parse_dp.unseen_bits(total, pad))):
+            raise AssertionError(f"unseen cost (pad {pad}): the card's "
+                                 "float32 log2 differs from the CPU's")
+
+    # ---- the main path: encode_pages_device itself, launches counted ----
+    plain_calls = []
+    plain = parse_dp.dp_parse_plain
+
+    def counted(*args, **kwargs):
+        plain_calls.append(1)
+        return plain(*args, **kwargs)
+
+    def entry():
+        return encode_pages_device(arr, sizes, PAGE, quality=11,
+                                   device="cuda")
+    nruns = ENC_REPS + 1                 # the first run is the warm-up
+    parse_dp.dp_parse_plain = counted
+    try:
+        _kernels.reset_launches()
+        times, outs = [], []
+        for _ in range(nruns):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(entry())
+            times.append((time.perf_counter() - t0) * 1e3)
+        counts = dict(_kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        outs.append(entry())
+        peak = torch.cuda.max_memory_allocated(dev)
+        work = device_work(entry)
+        # the stage breakdown, from chip_smoke's copy of the route's steps
+        runs = [q11_steps(arr, sizes, dev, iters) for _ in range(ENC_REPS)]
+    finally:
+        parse_dp.dp_parse_plain = plain
+    launches = counts["dp_parse"]
+    want = {**dict.fromkeys(counts, 0), "dp_parse": iters * nruns}
+    if counts != want or plain_calls:
+        raise AssertionError(f"q11: encode_pages_device launched {counts} "
+                             f"(want {want}) and {len(plain_calls)} plain "
+                             "dp_parse calls (want 0)")
+    blobs = outs[0]
+    if any(o != blobs for o in outs):
+        raise AssertionError("q11 encode is not deterministic")
+    if any(r[0] != blobs for r in runs):
+        raise AssertionError("encode_pages_device(quality=11) differs from "
+                             "its steps")
+    total = float(np.median(times[1:]))
+    med = {k: float(np.median([r[1][k] for r in runs])) for k in runs[0][1]}
+    nbytes = len(idx) * PAGE
+    q1 = encode_pages_device(arr, sizes, PAGE, quality=1, device="cuda")
+    native_blob = native.encode(arr.tobytes(), page_size=PAGE, quality=11)
+    ratio = nbytes / sum(map(len, blobs))
+    print(f"[smoke] full-device q11 encode (encode_pages_device, quality=11, "
+          f"{iters} DP iterations, B {B} W {W} R {R}) of {len(idx)} x 64 "
+          f"KiB corpus pages (every {idx[1] - idx[0]}th) on the card: runs "
+          f"{[round(t, 3) for t in times]} ms, median of {ENC_REPS} warm "
+          f"runs {total:.3f} ms -> {nbytes / total / 1e6:.6f} GB/s of input; "
+          f"per call {work['aten_ops']} aten ops, "
+          f"{work['kernels'] or 'not measured'} CUDA kernels "
+          f"({work['kernel_ms'] or 0:.3f} ms of kernel time); peak "
+          f"{peak / 2**20:.1f} MiB allocated; DP kernel launches {launches} "
+          f"({iters} x {nruns} runs), plain dp_parse calls 0 [{gpu}]",
+          flush=True)
+    print(f"[smoke] full-device q11 stage breakdown (chip_smoke's copy of "
+          f"encode_pages_device's steps, CUDA events per device stage), "
+          f"median of {ENC_REPS} runs (ms): "
+          f"{json.dumps({k: round(v, 3) for k, v in med.items()})}; its "
+          f"total {med['total']:.3f} ms beside encode_pages_device's "
+          f"{total:.3f} ms [{gpu}]", flush=True)
+    print(f"[smoke] q11 ratio {ratio:.4f}; q1 on the same pages "
+          f"{nbytes / sum(map(len, q1)):.4f} (q11/q1 "
+          f"{sum(map(len, q1)) / sum(map(len, blobs)):.4f}); native q11 "
+          f"{nbytes / len(native_blob):.4f} [{gpu}]", flush=True)
+    print("[smoke] full-device q11 stage breakdown runs (ms): " + json.dumps(
+        [{k: round(v, 3) for k, v in r[1].items()} for r in runs])
+        + f" [{gpu}]", flush=True)
+    for blob, page in zip(blobs, arr):
+        got = (page.tobytes() if len(blob) == PAGE
+               else native.decode_page(blob, PAGE))
+        if got != page.tobytes():
+            raise AssertionError("full-device q11: a blob does not decode")
+
+    # ---- the kernel against its plain version, first iteration ----
+    ins = runs[0][2]
+    kernel = dp_launch(ins, B, W, R)
+    kernel()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = parse_dp.dp_parse_plain(*ins, B, W, R)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max_abs_err([kernel.out], [want])
+    if err != 0:
+        raise AssertionError(f"DP kernel disagrees with plain: {err}")
+    k_dp = {"max_abs_err": err, "ms": time_ms(kernel, ENC_REPS),
+            "plain_ms": plain_ms, **dp_bound(ins, B, W, R)}
+    print(f"[smoke] DP kernel == plain (tolerance 0) on the first cost-model "
+          f"iteration of the {len(idx)} pages; kernel {k_dp['ms']:.3f} ms "
+          f"(mean of {ENC_REPS} raw launches), plain {plain_ms:.1f} ms "
+          f"(one run on the card), bound {k_dp['bound_ms']:.5f} ms by "
+          f"{k_dp['bound_by']} ({k_dp.pop('edges')} relax edges a round "
+          f"summed over the pages) [{gpu}]", flush=True)
+
+    # ---- candidates and cost model, card against CPU, 2 pages ----
+    got, want = [], []
+    for d, out in ((dev, got), ("cpu", want)):
+        pages = torch.from_numpy(arr[:MODEL_CHECK]).to(d)
+        in_sizes = torch.from_numpy(sizes[:MODEL_CHECK]).to(d)
+        cand = find_candidates(pages, in_sizes, W)
+        greedy = find_commands(pages, in_sizes, PAGE // 4 + 16)
+        out += [t.cpu() for t in cand + parse_dp.build_cost_model(
+            pages, in_sizes, *greedy, *cand)]
+    err = max_abs_err(got, want)
+    if err != 0:
+        raise AssertionError(f"find_candidates / build_cost_model: the card "
+                             f"differs from the CPU run: {err}")
+    print(f"[smoke] find_candidates and build_cost_model on {MODEL_CHECK} "
+          f"pages == the CPU run (tolerance 0); unseen cost on the card == "
+          f"the CPU's for every total in [1, 2^18)", flush=True)
+    return {"launches": decode_on_card(container_of(blobs, PAGE),
+                                       arr.tobytes(),
+                                       "full-device q11 container"),
+            "dp": {**k_dp, "launches": launches}}
 
 
 def main() -> int:
@@ -1332,7 +1634,8 @@ def main() -> int:
     print(f"[smoke] 64 MiB q1 container decoded 5 times in a row, every "
           f"run equal to the input; launches {counts} (once a batch: "
           f"{nb})", flush=True)
-    if counts != {"tables": nb, "decode": nb, "phase_a": 0, "sweep": 0}:
+    if counts != {"tables": nb, "decode": nb, "phase_a": 0, "sweep": 0,
+                  "dp_parse": 0}:
         raise AssertionError("the repeated decodes did not launch their "
                              "kernels once a batch")
     pipeline_never_syncs(blob64, dev)
@@ -1359,7 +1662,8 @@ def main() -> int:
         if outs != datas:
             raise AssertionError(f"pooled decode {r} differs from the "
                                  "inputs")
-        if pool != {"tables": nb, "decode": nb, "phase_a": 0, "sweep": 0}:
+        if pool != {"tables": nb, "decode": nb, "phase_a": 0, "sweep": 0,
+                    "dp_parse": 0}:
             raise AssertionError(f"pooled decode launched {pool}, want "
                                  f"{nb} batches")
     torch.cuda.synchronize()
@@ -1461,7 +1765,12 @@ def main() -> int:
     tex, _, params, _ = texs[name]
     tex_launches = texture_encode_phase(name, tex, params, gpu)
     cli_phase(data16[:1 << 20], gpu)
-    for got in [enc["launches"], hyb["launches"]] + tex_launches:
+    t1 = time.perf_counter()
+    q11 = q11_phase(data16, dev, gpu)
+    print(f"[smoke] q11 phase {time.perf_counter() - t1:.1f} s [{gpu}]",
+          flush=True)
+    for got in [enc["launches"], hyb["launches"], q11["launches"]] \
+            + tex_launches:
         for k in fused:
             fused[k] += got["fused"][k]
             two[k] += got["two_phase"][k]
@@ -1483,7 +1792,9 @@ def main() -> int:
         {"name": f"sweep_cw{cw}", "route": "cuda", "source": src + "sweep.cu",
          "replaces": f"{pallas}:{1149 if cw == 128 else 886}",
          "launches": by_cw[cw], **k5[cw]}
-        for cw in SWEEP_CWS]
+        for cw in SWEEP_CWS] + [
+        {"name": "dp_parse", "route": "cuda", "source": src + "dp_parse.cu",
+         "replaces": "brotlig_tpu/ops/parse_dp.py:234", **q11["dp"]}]
     print(f"[smoke] whole run {time.perf_counter() - t_start:.1f} s, "
           "builds included", flush=True)
     print(json.dumps({"kernels": kernels}))

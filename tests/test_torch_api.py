@@ -43,6 +43,8 @@ def test_import_pulls_in_no_jax():
               "brotlig_tpu_torch.parallel.runtime",
               "brotlig_tpu_torch.ops.encode",
               "brotlig_tpu_torch.ops.encode_pack",
+              "brotlig_tpu_torch.ops.parse_dp",
+              "brotlig_tpu_torch.ops.dp_kernel",
               "brotlig_tpu_torch.cli",
               "brotlig_tpu_torch.utils.brotli_codec"):
         assert m in mods, m

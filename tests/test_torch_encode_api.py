@@ -1,8 +1,8 @@
 """The port's encode surface on the CPU, with no JAX: round trips of the
-hybrid and full-device routes through the port's decoder and the native
-one, preconditioned textures, feedback and abort, the refusals, the
-serializer's independence of its command bucket, encode_archives and the
-command line."""
+hybrid and full-device routes (q1, and q11 with a narrowed DP parse)
+through the port's decoder and the native one, preconditioned textures,
+feedback and abort, the refusals, the serializer's independence of its
+command bucket, encode_archives and the command line."""
 import numpy as np
 import pytest
 import torch
@@ -127,11 +127,6 @@ def test_feedback_per_batch_and_abort(backend, quality):
 
 def test_refusals():
     data = b"abc" * 100
-    with pytest.raises(NotImplementedError, match="windowed DP"):
-        bt.encode(data, backend="full", quality=11, device="cpu")
-    with pytest.raises(NotImplementedError, match="windowed DP"):
-        TP.encode_pages_device(np.zeros((1, S), np.uint8),
-                               np.array([3]), S, device="cpu")
     _, params = bc1_texture(64, 64, seed=0)
     with pytest.raises(ValueError, match="preconditioning"):
         bt.encode(data, dc_params=params, backend="native")
@@ -139,6 +134,32 @@ def test_refusals():
         bt.encode(data, backend="tpu", device="cpu")
     with pytest.raises(ValueError, match="page size"):
         bt.encode(data, page_size=4096, device="cpu")
+
+
+def small_dp(monkeypatch):
+    """The DP parse narrowed for the CPU (W 64, R 2, one cost-model
+    iteration): its plain version takes ~12 s a 32 KiB page an iteration
+    at the defaults. tests/test_torch_parse_dp.py holds it to the JAX
+    package; these tests show the q11 route is wired."""
+    from brotlig_tpu_torch.ops import parse_dp
+    monkeypatch.setattr(parse_dp, "WINDOW", 64)
+    monkeypatch.setattr(parse_dp, "ROUNDS", 2)
+    monkeypatch.setenv("BLG_DP_ITERS", "1")
+
+
+def test_full_q11_round_trip(monkeypatch):
+    """encode(backend="full", quality=11) on the CPU: one 32 KiB page of
+    text and structured data, decoded by the native decoder and by the
+    port's CPU decode; the DP parse makes it smaller than the q1 tier."""
+    small_dp(monkeypatch)
+    data = make_data("text", S // 2, 1) + make_data("structured", S // 2, 2)
+    blob = bt.encode(data, page_size=S, backend="full", quality=11,
+                     device="cpu")
+    assert native.decode(blob) == data
+    assert bt.decode(blob, device="cpu") == data
+    q1 = bt.encode(data, page_size=S, backend="full", quality=1,
+                   device="cpu")
+    assert len(blob) < len(q1)
 
 
 def test_encode_without_gpu_raises():
@@ -231,7 +252,7 @@ def test_encode_archives():
     assert native.decode(second[1]) == b""
 
 
-def test_cli_round_trip(tmp_path, capsys):
+def test_cli_round_trip(tmp_path, capsys, monkeypatch):
     data = mixed(40000, seed=5)
     src = tmp_path / "file.bin"
     src.write_bytes(data)
@@ -247,7 +268,8 @@ def test_cli_round_trip(tmp_path, capsys):
     assert cli.main([str(src), str(full), "--device", "cpu",
                      "--encode-backend", "full", "--quality", "1"]) == 0
     assert native.decode(full.read_bytes()) == data
-    capsys.readouterr()
-    assert cli.main([str(src), str(full), "--device", "cpu",
-                     "--encode-backend", "full"]) == 2
-    assert "windowed DP" in capsys.readouterr().err
+    small_dp(monkeypatch)
+    q11 = tmp_path / "q11.brotlig"
+    assert cli.main([str(src), str(q11), "--device", "cpu",
+                     "--encode-backend", "full"]) == 0
+    assert native.decode(q11.read_bytes()) == data

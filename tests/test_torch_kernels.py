@@ -18,6 +18,7 @@ from brotlig_tpu_torch.ops import (decode_kernel, phase_a_kernel,
 from brotlig_tpu_torch.ops.decode import VALID_SWEEP_CW, staged_batches
 from brotlig_tpu_torch.state import Staged, tables_from_lengths
 from test_roundtrip import make_data
+from test_torch_encode_api import small_dp
 from test_torch_two_phase import (EDGE_CASES, edge_case, mixed_pages,
                                   plain_phase_a, stage)
 
@@ -246,7 +247,7 @@ def test_decode_stream_two_phase_cuda(cuda_dev, cw, monkeypatch):
     assert decode(blob, device="cuda", variant="two_phase",
                   sweep_cw=cw) == data
     assert _kernels.LAUNCHES == {"tables": 1, "decode": 0, "phase_a": 1,
-                                 "sweep": 1}
+                                 "sweep": 1, "dp_parse": 0}
     assert _kernels.SWEEP_LAUNCHES[cw] == 1
 
 
@@ -403,14 +404,22 @@ def test_encode_pages_device_card_equals_cpu(cuda_dev):
     assert got == want
 
 
-@pytest.mark.parametrize("backend,quality", [("hybrid", 11), ("full", 1)])
-def test_encode_on_card_decodes_on_card(cuda_dev, backend, quality):
+@pytest.mark.parametrize("backend,quality",
+                         [("hybrid", 11), ("full", 1), ("full", 11)])
+def test_encode_on_card_decodes_on_card(cuda_dev, backend, quality,
+                                        monkeypatch):
     """A stream encoded on the card equals the CPU route's and decodes on
-    the card, every kernel of each route launched once a batch."""
+    the card, every kernel of each route launched once a batch (and the DP
+    kernel once a batch an iteration)."""
     from brotlig_tpu_torch import encode
+    if quality >= 10:   # the CPU run it is held to: a narrowed DP
+        small_dp(monkeypatch)
     data = b"".join(make_data(k, 65536, seed=i)
                     for i, k in enumerate(KINDS)) + make_data("text", 777)
+    _kernels.reset_launches()
     blob = encode(data, backend=backend, quality=quality, device="cuda")
+    assert _kernels.LAUNCHES["dp_parse"] == (quality >= 10 and
+                                             backend == "full")
     assert blob == encode(data, backend=backend, quality=quality,
                           device="cpu")
     for variant, kernels in (("fused", ("tables", "decode")),
@@ -420,9 +429,13 @@ def test_encode_on_card_decodes_on_card(cuda_dev, backend, quality):
         assert all(_kernels.LAUNCHES[k] == 1 for k in kernels)
 
 
-@pytest.mark.parametrize("backend,quality", [("hybrid", 11), ("full", 1)])
-def test_preconditioned_encode_on_card(cuda_dev, backend, quality):
+@pytest.mark.parametrize("backend,quality",
+                         [("hybrid", 11), ("full", 1), ("full", 11)])
+def test_preconditioned_encode_on_card(cuda_dev, backend, quality,
+                                       monkeypatch):
     from brotlig_tpu_torch import encode
+    if quality >= 10:
+        small_dp(monkeypatch)
     from brotlig_tpu_torch.format import constants as C
     from brotlig_tpu_torch.format.precondition import DataConditionParams
     rng = np.random.default_rng(0)
@@ -440,3 +453,115 @@ def test_preconditioned_encode_on_card(cuda_dev, backend, quality):
     assert blob == encode(tex, page_size=32768, dc_params=params(),
                           backend=backend, quality=quality, device="cpu")
     assert decode(blob, device="cuda") == tex
+
+
+# ---------------------------------------------------------------------------
+# The windowed-DP kernel (csrc/dp_parse.cu) and the q11 route's parts
+# ---------------------------------------------------------------------------
+
+def dp_pages(kinds, S):
+    """(uint8 [P, S] pages, int32 sizes) of (kind, length) rows, as
+    tests/test_ops_encode.py::TestParseDP makes them."""
+    arr = np.zeros((len(kinds), S), np.uint8)
+    sizes = np.zeros(len(kinds), np.int32)
+    for i, (kind, n) in enumerate(kinds):
+        arr[i, :n] = np.frombuffer(make_data(kind, n, seed=i + 20), np.uint8)
+        sizes[i] = n
+    return arr, sizes
+
+
+def dp_inputs(arr, sizes, W: int, dev):
+    """The first cost-model iteration's DP inputs on dev: (litq, cand_len,
+    dpackq, jointEq, jointLq)."""
+    from brotlig_tpu_torch.ops import encode as TE
+    from brotlig_tpu_torch.ops import parse_dp
+    pages = torch.from_numpy(arr).to(dev)
+    in_sizes = torch.from_numpy(sizes).to(dev)
+    greedy = TE.find_commands(pages, in_sizes, arr.shape[1] // 4 + 16)
+    m = parse_dp.build_cost_model(pages, in_sizes, *greedy,
+                                  *TE.find_candidates(pages, in_sizes, W))
+    return m[0], m[3], m[5], m[1], m[2]
+
+
+TEST_PARSE_DP_KINDS = [("text", 2048), ("structured", 2048 - 97),
+                       ("repetitive", 2048), ("random", 1000),
+                       ("zeros", 2048)]
+
+
+@pytest.mark.parametrize("shape", ["defaults", "test_parse_dp"])
+def test_dp_kernel_matches_plain(cuda_dev, shape):
+    """The kernel equals its plain version on the card, bit for bit: four
+    32 KiB pages at the defaults (B 32, W 512, R 16), and TestParseDP's
+    shapes (S 2048, W 256, R 6) with ragged sizes."""
+    from brotlig_tpu_torch.ops import parse_dp
+    if shape == "defaults":
+        arr, sizes = dp_pages([(k, 32768) for k in KINDS[:4]], 32768)
+        B, W, R = 32, 512, 16
+    else:
+        arr, sizes = dp_pages(TEST_PARSE_DP_KINDS, 2048)
+        B, W, R = 32, 256, 6
+    ins = dp_inputs(arr, sizes, W, cuda_dev)
+    _kernels.reset_launches()
+    got = parse_dp.dp_parse(*ins, B, W, R)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["dp_parse"] == 1
+    want = parse_dp.dp_parse_plain(*ins, B, W, R)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("B,W,R,S", [(64, 256, 6, 2048), (32, 1024, 6, 2048),
+                                     (32, 240, 6, 2048), (48, 480, 6, 2000),
+                                     (32, 256, -1, 2048)])
+def test_dp_kernel_refuses_bad_shapes(cuda_dev, B, W, R, S):
+    from brotlig_tpu_torch.ops import parse_dp
+    P, K = 2, 12
+    z = torch.zeros((P, S), dtype=torch.int32, device=cuda_dev)
+    zk = torch.zeros((P, S, K), dtype=torch.int32, device=cuda_dev)
+    zj = torch.zeros((P, 576), dtype=torch.int32, device=cuda_dev)
+    _kernels.reset_launches()
+    with pytest.raises(ValueError, match="dp_parse needs"):
+        parse_dp.dp_parse(z, zk, zk, zj, zj, B, W, R)
+    assert _kernels.LAUNCHES["dp_parse"] == 0
+
+
+def test_unseen_cost_on_card_equals_cpu(cuda_dev):
+    """The float32 unseen-symbol half-bits of every table total in
+    [1, 2^18), pads 2 and 4: a log2 one ulp off would flip a half-bit."""
+    from brotlig_tpu_torch.ops.parse_dp import unseen_bits
+    total = torch.arange(1, 1 << 18)
+    for pad in (2.0, 4.0):
+        got = torch.round(2.0 * unseen_bits(total.to(cuda_dev), pad))
+        want = torch.round(2.0 * unseen_bits(total, pad))
+        assert torch.equal(got.cpu(), want)
+
+
+def test_find_commands_dp_card_equals_cpu(cuda_dev):
+    from brotlig_tpu_torch.ops.parse_dp import find_commands_dp
+    arr, sizes = dp_pages(TEST_PARSE_DP_KINDS, 2048)
+    args = (2048 // 2 + 2,)
+    kw = dict(iters=2, B=32, W=256, R=6)
+    want = find_commands_dp(torch.from_numpy(arr), torch.from_numpy(sizes),
+                            *args, **kw)
+    _kernels.reset_launches()
+    got = find_commands_dp(torch.from_numpy(arr).to(cuda_dev),
+                           torch.from_numpy(sizes).to(cuda_dev), *args, **kw)
+    assert _kernels.LAUNCHES["dp_parse"] == 2
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_dp_candidates_and_cost_model_card_equal_cpu(cuda_dev):
+    from brotlig_tpu_torch.ops import encode as TE
+    from brotlig_tpu_torch.ops import parse_dp
+    _, arr, sizes = encode_rows()
+    W = 512
+    outs = []
+    for dev in (cuda_dev, "cpu"):
+        pages = torch.from_numpy(arr).to(dev)
+        in_sizes = torch.from_numpy(sizes).to(dev)
+        cand = TE.find_candidates(pages, in_sizes, W)
+        greedy = TE.find_commands(pages, in_sizes, arr.shape[1] // 4 + 16)
+        outs.append([t.cpu() for t in cand + parse_dp.build_cost_model(
+            pages, in_sizes, *greedy, *cand)])
+    for g, w in zip(*outs):
+        assert torch.equal(g, w)
