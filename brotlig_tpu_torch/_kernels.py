@@ -127,7 +127,9 @@ def library():
                                   i32, vp, vp, vp]
         lib.blg_dp_parse.restype = i32
         lib.blg_dp_parse.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
-                                     i32, i32, vp, vp]
+                                     i32, i32, vp, vp, vp]
+        lib.blg_dp_smem.restype = i32
+        lib.blg_dp_smem.argtypes = [i32, i32, i32]
         _lib = lib
         return _lib
 

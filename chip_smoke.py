@@ -44,8 +44,10 @@ and at q11, in 64-page batches, with its peak memory and DP launches); a
 round trip through python -m brotlig_tpu_torch.cli --device cuda; and
 the q11 path,
 encode_pages_device(quality=11), on 8 corpus pages: its windowed-DP
-kernel (csrc/dp_parse.cu) held to its plain version on the card and
-timed beside it and its bound, find_candidates and the cost model held
+kernel (csrc/dp_parse.cu) held to its plain version on the card (at R
+16, 1 and 2) and timed beside it and its bound, with its rounds a block
+and its time a page there and on the texture's 64-page batch,
+find_candidates and the cost model held
 to the CPU run, the entry point timed, its kernels, peak memory and DP
 kernel launches counted, its stages timed on a copy of its steps, and
 its ratio beside q1 and the native q11 encoder. Every
@@ -1105,21 +1107,34 @@ def texture_encode_phase(name: str, tex: bytes, params, gpu) -> dict:
     full route at q1 and at q11 (conditioned and delta-encoded on the
     card; the full route in its default 64-page batches), each timed with
     its peak device memory and DP kernel launches (iterations x batches
-    at q11, none otherwise) and decoded on the card back to the texture."""
+    at q11, none otherwise) and decoded on the card back to the texture.
+    Returns (the decode launches, the DP inputs of the q11 route's first
+    batch and iteration: litq, cand_len, dpackq, jointEq, jointLq)."""
     import torch
     import brotlig_tpu_torch
     from brotlig_tpu_torch import _kernels
+    from brotlig_tpu_torch.ops import parse_dp
     iters = int(os.environ.get("BLG_DP_ITERS", "3"))
     nbatch = -(-len(tex) // PAGE // 64)
-    launches = []
+    launches, first = [], []
+    dp_parse = parse_dp.dp_parse
+
+    def recorded(*args):
+        if not first:
+            first.extend(args[:5])
+        return dp_parse(*args)
     for backend, quality in (("hybrid", 11), ("full", 1), ("full", 11)):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _kernels.reset_launches()
         t0 = time.perf_counter()
-        blob = brotlig_tpu_torch.encode(tex, dc_params=params,
-                                        backend=backend, quality=quality,
-                                        device="cuda")
+        parse_dp.dp_parse = recorded
+        try:
+            blob = brotlig_tpu_torch.encode(tex, dc_params=params,
+                                            backend=backend, quality=quality,
+                                            device="cuda")
+        finally:
+            parse_dp.dp_parse = dp_parse
         ms = (time.perf_counter() - t0) * 1e3
         peak = torch.cuda.max_memory_allocated()
         dp = _kernels.LAUNCHES["dp_parse"]
@@ -1133,7 +1148,7 @@ def texture_encode_phase(name: str, tex: bytes, params, gpu) -> dict:
               f"[{gpu}]", flush=True)
         launches.append(decode_on_card(blob, tex, f"{name}, {backend} "
                                        f"encode (q{quality})"))
-    return launches
+    return launches, tuple(first)
 
 
 def cli_phase(data: bytes, gpu) -> None:
@@ -1198,17 +1213,36 @@ def dp_bound(ins, B: int, W: int, R: int) -> dict:
     return {**bound(nbytes, ops), "edges": pairs + edges}
 
 
-def dp_launch(ins, B: int, W: int, R: int):
+def dp_launch(ins, B: int, W: int, R: int, rounds: bool = False):
     """The DP kernel's raw launch on (litq, cand_len, dpackq, jointEq,
-    jointLq)."""
+    jointLq); with rounds, it also writes the rounds each page ran
+    (run.rounds, int32 [P])."""
     import torch
     from brotlig_tpu_torch import _kernels
     P, S, K = ins[1].shape
-    out = torch.empty((P, S), dtype=torch.int32, device=ins[0].device)
+    dev = ins[0].device
+    out = torch.empty((P, S), dtype=torch.int32, device=dev)
+    ran = torch.zeros(P, dtype=torch.int32, device=dev) if rounds else None
     run = raw_launch(_kernels.library().blg_dp_parse,
-                     [*ins, P, S, K, B, W, R, out], ins[0].device)
-    run.out = out
+                     [*ins, P, S, K, B, W, R, out, ran], dev)
+    run.out, run.rounds = out, ran
     return run
+
+
+def dp_kernel_report() -> str:
+    """ptxas's registers and barriers of each instance of the DP kernel
+    (one for blocks of at most 32 cells, one for more) from the build
+    log."""
+    from brotlig_tpu_torch import _kernels
+    found, name = [], None
+    for line in _kernels.BUILD_LOG.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+        elif name and "dp_parse_kernel" in name and "registers" in line:
+            found.append(f"{'B > 32' if 'ILi2E' in name else 'B <= 32'}: "
+                         + line.split(":", 1)[1].strip())
+            name = None
+    return "; ".join(found) or "not in the build log"
 
 
 def q11_steps(arr, sizes, dev, iters: int):
@@ -1286,7 +1320,25 @@ def q11_steps(arr, sizes, dev, iters: int):
     return blobs, ms, first
 
 
-def q11_phase(data: bytes, dev, gpu) -> dict:
+# the DP kernel's first design (one thread block a page, every block 16
+# rounds and a final closure) on this phase's batch, a launch (NVIDIA H100
+# 80GB HBM3, 700 W; chip_smoke.py's q11 phase)
+DP_FIRST_DESIGN_MS = 102.211
+
+
+def dp_rounds_mean(ins, B: int, W: int, R: int) -> list:
+    """The rounds a block each page of the DP inputs ran in the kernel
+    (every block stops at its first round in which no dp value fell, else
+    after R)."""
+    import torch
+    run = dp_launch(ins, B, W, R, rounds=True)
+    run()
+    torch.cuda.synchronize()
+    blocks = ins[0].shape[1] // B
+    return [round(int(x) / blocks, 4) for x in run.rounds.cpu()]
+
+
+def q11_phase(data: bytes, dev, gpu, tex_dp) -> dict:
     """The full-device q11 path, encode_pages_device(quality=11), on 8
     corpus pages: the DP kernel held to its plain version on the card
     (tolerance 0) and timed beside it and its bound; find_candidates and
@@ -1295,7 +1347,10 @@ def q11_phase(data: bytes, dev, gpu) -> dict:
     (iterations x runs, no plain dp_parse), its CUDA kernels and its peak
     memory; the stage breakdown from q11_steps; its ratio against q1
     and the native q11 encoder; every blob decoded by the native decoder
-    and, as a container, on the card on both routes."""
+    and, as a container, on the card on both routes. The DP kernel is also
+    held to its plain version at R 1 and 2 on the same inputs, its rounds
+    a block are read from its rounds output, and it is timed on tex_dp, the
+    config-3 texture's first 64-page q11 batch, for its time a page."""
     import numpy as np
     import torch
     from brotlig_tpu_torch import _kernels, native
@@ -1408,16 +1463,42 @@ def q11_phase(data: bytes, dev, gpu) -> dict:
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     err = max_abs_err([kernel.out], [want])
+    for r in (1, 2):
+        short = dp_launch(ins, B, W, r)
+        short()
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(
+            [short.out], [parse_dp.dp_parse_plain(*ins, B, W, r)]))
     if err != 0:
         raise AssertionError(f"DP kernel disagrees with plain: {err}")
     k_dp = {"max_abs_err": err, "ms": time_ms(kernel, ENC_REPS),
             "plain_ms": plain_ms, **dp_bound(ins, B, W, R)}
     print(f"[smoke] DP kernel == plain (tolerance 0) on the first cost-model "
-          f"iteration of the {len(idx)} pages; kernel {k_dp['ms']:.3f} ms "
-          f"(mean of {ENC_REPS} raw launches), plain {plain_ms:.1f} ms "
-          f"(one run on the card), bound {k_dp['bound_ms']:.5f} ms by "
-          f"{k_dp['bound_by']} ({k_dp.pop('edges')} relax edges a round "
-          f"summed over the pages) [{gpu}]", flush=True)
+          f"iteration of the {len(idx)} pages at R {R}, 1 and 2; kernel "
+          f"{k_dp['ms']:.3f} ms (mean of {ENC_REPS} raw launches), plain "
+          f"{plain_ms:.1f} ms (one run on the card, R {R}), bound "
+          f"{k_dp['bound_ms']:.5f} ms by {k_dp['bound_by']} "
+          f"({k_dp.pop('edges')} relax edges a round summed over the pages) "
+          f"[{gpu}]", flush=True)
+    # a block that stops runs no final closure: a mean below R rounds is a
+    # mean below the first design's R + 1 passes
+    rounds = dp_rounds_mean(ins, B, W, R)
+    if not sum(rounds) / len(rounds) < R:
+        raise AssertionError(f"DP kernel: {rounds} rounds a block, want a "
+                             f"mean below {R}")
+    tex_ms = time_ms(dp_launch(tex_dp, B, W, R), ENC_REPS)
+    tex_rounds = dp_rounds_mean(tex_dp, B, W, R)
+    ntex = tex_dp[0].shape[0]
+    print(f"[smoke] DP kernel: {k_dp['ms']:.3f} ms a launch on the "
+          f"{len(idx)}-page batch ({k_dp['ms'] / len(idx):.4f} ms a page; "
+          f"the first design took {DP_FIRST_DESIGN_MS} ms there), "
+          f"{tex_ms:.3f} ms on the config-3 texture's first {ntex}-page "
+          f"batch ({tex_ms / ntex:.4f} ms a page); rounds a block (R {R}) "
+          f"by page {rounds}, mean {sum(rounds) / len(rounds):.4f}; "
+          f"texture batch mean {sum(tex_rounds) / ntex:.4f}, max "
+          f"{max(tex_rounds)}; ptxas {dp_kernel_report()}; dynamic shared "
+          f"memory {_kernels.library().blg_dp_smem(W, B, ins[1].shape[2])} "
+          f"B a block [{gpu}]", flush=True)
 
     # ---- candidates and cost model, card against CPU, 2 pages ----
     got, want = [], []
@@ -1763,10 +1844,11 @@ def main() -> int:
     hyb = hybrid_phase(data16, blob16, gpu)
     name = tex_names[0]
     tex, _, params, _ = texs[name]
-    tex_launches = texture_encode_phase(name, tex, params, gpu)
+    tex_launches, tex_dp = texture_encode_phase(name, tex, params, gpu)
     cli_phase(data16[:1 << 20], gpu)
     t1 = time.perf_counter()
-    q11 = q11_phase(data16, dev, gpu)
+    q11 = q11_phase(data16, dev, gpu, tex_dp)
+    del tex_dp
     print(f"[smoke] q11 phase {time.perf_counter() - t1:.1f} s [{gpu}]",
           flush=True)
     for got in [enc["launches"], hyb["launches"], q11["launches"]] \

@@ -488,18 +488,32 @@ TEST_PARSE_DP_KINDS = [("text", 2048), ("structured", 2048 - 97),
                        ("zeros", 2048)]
 
 
-@pytest.mark.parametrize("shape", ["defaults", "test_parse_dp"])
-def test_dp_kernel_matches_plain(cuda_dev, shape):
+@pytest.mark.parametrize("R", [0, 1, 2, 16])
+@pytest.mark.parametrize("shape", ["defaults", "test_parse_dp", "block_63",
+                                   "window_32"])
+def test_dp_kernel_matches_plain(cuda_dev, shape, R):
     """The kernel equals its plain version on the card, bit for bit: four
-    32 KiB pages at the defaults (B 32, W 512, R 16), and TestParseDP's
-    shapes (S 2048, W 256, R 6) with ragged sizes."""
-    from brotlig_tpu_torch.ops import parse_dp
+    32 KiB pages at the defaults (B 32, W 512), TestParseDP's shapes (S
+    2048, W 256) with ragged sizes, its pages cut to S 2016 at B 63, W
+    126 (two cells a lane), and at W 32 = B (no source before the
+    previous block), at R 0, 1, 2 and 16. No page runs more than
+    R rounds a block; away from the defaults the rounds equal those of the
+    torch rendering of the kernel's schedule
+    (tests/test_torch_dp_rounds.py); at R 16 the pages' blocks stop early
+    on average (fewer than 16 rounds, so fewer than 17 passes, a
+    block)."""
+    from brotlig_tpu_torch.ops import dp_kernel, parse_dp
+    from test_torch_dp_rounds import dp_parse_rounds
     if shape == "defaults":
         arr, sizes = dp_pages([(k, 32768) for k in KINDS[:4]], 32768)
-        B, W, R = 32, 512, 16
-    else:
+        B, W = 32, 512
+    elif shape in ("test_parse_dp", "window_32"):
         arr, sizes = dp_pages(TEST_PARSE_DP_KINDS, 2048)
-        B, W, R = 32, 256, 6
+        B, W = 32, 256 if shape == "test_parse_dp" else 32
+    else:
+        arr, sizes = dp_pages([(k, min(n, 2016)) for k, n
+                               in TEST_PARSE_DP_KINDS], 2016)
+        B, W = 63, 126
     ins = dp_inputs(arr, sizes, W, cuda_dev)
     _kernels.reset_launches()
     got = parse_dp.dp_parse(*ins, B, W, R)
@@ -507,6 +521,40 @@ def test_dp_kernel_matches_plain(cuda_dev, shape):
     assert _kernels.LAUNCHES["dp_parse"] == 1
     want = parse_dp.dp_parse_plain(*ins, B, W, R)
     assert got.dtype == torch.int32 and torch.equal(got, want)
+    again, rounds = dp_kernel.dp_parse_cuda(*ins, B, W, R,
+                                            return_rounds=True)
+    assert torch.equal(again, want)
+    blocks = arr.shape[1] // B
+    assert int(rounds.max()) <= R * blocks
+    if shape != "defaults":
+        _, ref_rounds = dp_parse_rounds(*[x.cpu() for x in ins], B, W, R)
+        assert torch.equal(rounds.cpu().long(), ref_rounds)
+    if R == 16:
+        assert float(rounds.double().mean()) / blocks < 16
+
+
+@pytest.mark.parametrize("S", [32, 64])
+def test_dp_kernel_one_and_two_blocks(cuda_dev, S):
+    """Pages of one and two blocks (B 32, W 32): the producers' first and
+    last blocks meet; bit for bit at R 16."""
+    from brotlig_tpu_torch.ops import parse_dp
+    arr, sizes = dp_pages([(k, S) for k in KINDS[:3]], S)
+    ins = dp_inputs(arr, sizes, 32, cuda_dev)
+    got = parse_dp.dp_parse(*ins, 32, 32, 16)
+    assert torch.equal(got, parse_dp.dp_parse_plain(*ins, 32, 32, 16))
+
+
+def test_dp_kernel_stops_late_on_a_text_page(cuda_dev):
+    """TestParseDP's text page at R 16: its blocks need several rounds
+    (mean above 2) and stop before R (mean below 16), on the card as in
+    the torch rendering; the output equals the plain version's."""
+    from brotlig_tpu_torch.ops import dp_kernel, parse_dp
+    arr, sizes = dp_pages(TEST_PARSE_DP_KINDS[:1], 2048)
+    ins = dp_inputs(arr, sizes, 256, cuda_dev)
+    got, rounds = dp_kernel.dp_parse_cuda(*ins, 32, 256, 16,
+                                          return_rounds=True)
+    assert torch.equal(got, parse_dp.dp_parse_plain(*ins, 32, 256, 16))
+    assert 2 < int(rounds[0]) / (2048 // 32) < 16
 
 
 @pytest.mark.parametrize("B,W,R,S", [(64, 256, 6, 2048), (32, 1024, 6, 2048),
