@@ -12,10 +12,16 @@ raises instead of falling back.
 Each C entry point launches one kernel on the given stream and returns
 ``cudaGetLastError()``; the wrappers raise when it is not 0.
 
+The wrappers call the entry points through ``launch``, which makes the
+tensors' device current in the calling thread first: an entry point sets
+its kernel's attributes and launches on whatever device is current, and
+torch's current device is per thread.
+
 ``LAUNCHES`` counts, per kernel, the launches the wrappers made, and
 ``SWEEP_LAUNCHES`` splits the sweep kernel's count by group width; a run
 resets both (``reset_launches``) and reads them to show that its main
-path went through the kernels.
+path went through the kernels. Threads that launch on several devices at
+once count under a lock.
 """
 from __future__ import annotations
 
@@ -41,14 +47,16 @@ LAUNCHES = {"tables": 0, "decode": 0, "phase_a": 0, "sweep": 0,
 SWEEP_LAUNCHES = {128: 0, 512: 0, 1024: 0, 2048: 0}
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib = None
 BUILD_LOG = ""
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, SWEEP_LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    with _count_lock:
+        for counts in (LAUNCHES, SWEEP_LAUNCHES):
+            for k in counts:
+                counts[k] = 0
 
 
 def _nvcc() -> str:
@@ -151,3 +159,19 @@ def check_cuda_args(*tensors) -> None:
 def stream_ptr(device) -> int:
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(kernel: str, entry: str, device, *args, cw: int | None = None):
+    """Call the C entry point `entry` with args and the current stream of
+    `device`, with `device` the calling thread's current device; raise
+    RuntimeError if it returns a CUDA error, else count one launch of
+    `kernel` (and of the sweep at group width `cw`)."""
+    import torch
+    with torch.cuda.device(device):
+        rc = getattr(library(), entry)(*args, stream_ptr(device))
+    if rc != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed (cudaError {rc})")
+    with _count_lock:
+        LAUNCHES[kernel] += 1
+        if cw is not None:
+            SWEEP_LAUNCHES[cw] += 1

@@ -2,20 +2,26 @@
 
 encode()              -> device match finding (+ device or native packing)
 decode()              -> batched page decode on a torch device
+decode_cpu()          -> the native multithreaded C++ decoder on the host
 decompressed_size()   -> header-only size query
 max_compressed_size() -> one-shot output buffer bound
 """
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
+
 from . import native
 from .format import constants as C
-from .format.headers import StreamHeader
-from .format.precondition import DataConditionParams
+from .format.headers import StreamHeader, parse_container
+from .format.precondition import (DataConditionParams, decondition,
+                                  delta_decode_page)
 from .ops.decode import decode_stream
 from .ops.encode import encode_stream
 from .ops.encode_pack import encode_stream_full
 
-__all__ = ["encode", "decode", "decompressed_size", "max_compressed_size"]
+__all__ = ["encode", "decode", "decode_cpu", "decompressed_size",
+           "max_compressed_size"]
 
 max_compressed_size = C.max_compressed_size
 ENCODE_BACKENDS = ("hybrid", "full", "native")
@@ -82,6 +88,38 @@ def decode(data: bytes, device="cuda", feedback=None,
     describes them."""
     return decode_stream(data, device, feedback=feedback, variant=variant,
                          sweep_cw=sweep_cw, return_device=return_device)
+
+
+def decode_cpu(data: bytes, num_threads: int = 0) -> bytes:
+    """Decode a Brotli-G container on the host with the native C++
+    decoder, `num_threads` threads over the pages (0: one a core).
+
+    A preconditioned container, which the native stream decoder refuses,
+    is decoded a page at a time by native.decode_page in a thread pool:
+    raw pages are copied, a page whose header sets the delta flag is
+    delta decoded, and the whole is deconditioned (format/precondition.py).
+    brotlig_tpu's decode_cpu takes its Python decoder there; the bytes
+    are the same."""
+    if not StreamHeader.unpack(data).preconditioned:
+        return native.decode(data, num_threads=num_threads)
+    info = parse_container(data)
+    if not info.header.num_pages:
+        return b""
+    ps = info.header.page_size
+
+    def page(i: int) -> bytes:
+        off, size = int(info.offsets[i]), int(info.sizes[i])
+        n = info.page_out_sizes[i]
+        if size == n:
+            return data[off: off + n]
+        out = native.decode_page(data[off: off + size], n)
+        # page header: npostfix (2 bits), ndirect (4), then the delta flag
+        if data[off] >> 6 & 1:
+            out = delta_decode_page(out, i * ps, info.dc_params)
+        return out
+    with ThreadPoolExecutor(num_threads or os.cpu_count() or 1) as pool:
+        pages = list(pool.map(page, range(info.header.num_pages)))
+    return decondition(b"".join(pages), info.dc_params)
 
 
 def decompressed_size(data: bytes) -> int:

@@ -23,6 +23,7 @@ output bytes past a page's coverage are zero instead of unspecified.
 """
 from __future__ import annotations
 
+import os
 from collections import deque
 from typing import NamedTuple
 
@@ -386,6 +387,29 @@ def max_cmds_for(page_size: int) -> int:
 
 VALID_SWEEP_CW = (128, 512, 1024, 2048)
 VALID_VARIANTS = ("fused", "two_phase", "xla")
+
+
+def env_decode_opts():
+    """Resolve (variant, sweep_cw) from the BLG_* environment once, at a
+    process edge (the profile tools). Library code takes them as
+    explicit arguments and reads no environment. BLG_VARIANT names the
+    route; without it BLG_PALLAS=0 picks "xla" and BLG_FUSED=0
+    "two_phase", else "fused". BLG_SWEEP_CW defaults to 2048. Unknown
+    values raise ValueError instead of quietly switching routes."""
+    variant = os.environ.get("BLG_VARIANT")
+    if variant is None:
+        if os.environ.get("BLG_PALLAS", "1") == "0":
+            variant = "xla"
+        elif os.environ.get("BLG_FUSED", "1") == "0":
+            variant = "two_phase"
+        else:
+            variant = "fused"
+    if variant not in VALID_VARIANTS:
+        raise ValueError(f"BLG_VARIANT={variant!r} not in {VALID_VARIANTS}")
+    cw = int(os.environ.get("BLG_SWEEP_CW", "2048"))
+    if cw not in VALID_SWEEP_CW:
+        raise ValueError(f"BLG_SWEEP_CW={cw} not in {VALID_SWEEP_CW}")
+    return variant, cw
 
 
 def _check_opts(variant, sweep_cw: int):

@@ -99,14 +99,11 @@ def _decode_fused_cuda(buf3, npd, tables, page_size: int):
     ncmds = torch.empty(P, dtype=torch.int32, device=dev)
     status = torch.empty(P, dtype=torch.int32, device=dev)
     _kernels.check_cuda_args(*ops, out, ncmds, status)
-    lib = _kernels.library()
-    rc = lib.blg_decode_pages(
-        ops[0].data_ptr(), wc, P, *[t.data_ptr() for t in ops[1:]],
-        page_size, D.max_cmds_for(page_size) // NBS, out.data_ptr(),
-        ncmds.data_ptr(), status.data_ptr(), _kernels.stream_ptr(dev))
-    if rc != 0:
-        raise RuntimeError(f"decode kernel launch failed (cudaError {rc})")
-    _kernels.LAUNCHES["decode"] += 1
+    _kernels.launch(
+        "decode", "blg_decode_pages", dev, ops[0].data_ptr(), wc, P,
+        *[t.data_ptr() for t in ops[1:]], page_size,
+        D.max_cmds_for(page_size) // NBS, out.data_ptr(), ncmds.data_ptr(),
+        status.data_ptr())
     return out, ncmds, status
 
 

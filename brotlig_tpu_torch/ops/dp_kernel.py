@@ -60,11 +60,8 @@ def dp_parse_cuda(litq, cand_len, dpackq, jointEq, jointLq, B: int, W: int,
     rounds = (torch.empty(P, dtype=torch.int32, device=litq.device)
               if return_rounds else None)
     _kernels.check_cuda_args(*ops, out)
-    rc = _kernels.library().blg_dp_parse(
-        *[t.data_ptr() for t in ops], P, S, K, B, W, R, out.data_ptr(),
-        None if rounds is None else rounds.data_ptr(),
-        _kernels.stream_ptr(litq.device))
-    if rc != 0:
-        raise RuntimeError(f"dp_parse kernel launch failed (cudaError {rc})")
-    _kernels.LAUNCHES["dp_parse"] += 1
+    _kernels.launch("dp_parse", "blg_dp_parse", litq.device,
+                    *[t.data_ptr() for t in ops], P, S, K, B, W, R,
+                    out.data_ptr(),
+                    None if rounds is None else rounds.data_ptr())
     return (out, rounds) if return_rounds else out

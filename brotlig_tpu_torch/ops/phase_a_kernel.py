@@ -88,12 +88,9 @@ def _phase_a_cuda(buf3, npd, tables, page_size: int) -> PhaseA:
                              device=dev),
                  torch.empty(P, dtype=torch.int32, device=dev))
     _kernels.check_cuda_args(*ops, *out)
-    rc = _kernels.library().blg_phase_a(
-        ops[0].data_ptr(), wc, P, *[t.data_ptr() for t in ops[1:]],
-        page_size, mc // NBS, out.ins.data_ptr(), out.cpy.data_ptr(),
-        out.dist.data_ptr(), out.litq.data_ptr(), out.ncmds.data_ptr(),
-        out.status.data_ptr(), _kernels.stream_ptr(dev))
-    if rc != 0:
-        raise RuntimeError(f"phase-A kernel launch failed (cudaError {rc})")
-    _kernels.LAUNCHES["phase_a"] += 1
+    _kernels.launch(
+        "phase_a", "blg_phase_a", dev, ops[0].data_ptr(), wc, P,
+        *[t.data_ptr() for t in ops[1:]], page_size, mc // NBS,
+        out.ins.data_ptr(), out.cpy.data_ptr(), out.dist.data_ptr(),
+        out.litq.data_ptr(), out.ncmds.data_ptr(), out.status.data_ptr())
     return out

@@ -100,12 +100,7 @@ def launch_sweep(ncmds, litq, ins, cpy, dist, page_size: int, cw: int):
     out = torch.empty((P, page_size), dtype=torch.uint8, device=dev)
     scratch = torch.empty((P, N, 4), dtype=torch.int32, device=dev)
     _kernels.check_cuda_args(*ops, litq, scratch, out)
-    rc = _kernels.library().blg_sweep(
-        *[x.data_ptr() for x in ops], litq.data_ptr(), litq.shape[1], P, N,
-        page_size, cw, scratch.data_ptr(), out.data_ptr(),
-        _kernels.stream_ptr(dev))
-    if rc != 0:
-        raise RuntimeError(f"sweep kernel launch failed (cudaError {rc})")
-    _kernels.LAUNCHES["sweep"] += 1
-    _kernels.SWEEP_LAUNCHES[cw] += 1
+    _kernels.launch("sweep", "blg_sweep", dev, *[x.data_ptr() for x in ops],
+                    litq.data_ptr(), litq.shape[1], P, N, page_size, cw,
+                    scratch.data_ptr(), out.data_ptr(), cw=cw)
     return out

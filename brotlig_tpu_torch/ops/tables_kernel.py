@@ -78,10 +78,6 @@ def _load_tables_cuda(buf3: torch.Tensor) -> KernelTables:
     out = KernelTables(empty(P, 3, 3, LEN_SLOTS), empty(P, sum(ALPHABETS)),
                        empty(P, 3), empty(P, NBS))
     _kernels.check_cuda_args(buf3, *out)
-    rc = _kernels.library().blg_load_tables(
-        buf3.data_ptr(), wc, P, *[t.data_ptr() for t in out],
-        _kernels.stream_ptr(dev))
-    if rc != 0:
-        raise RuntimeError(f"tables kernel launch failed (cudaError {rc})")
-    _kernels.LAUNCHES["tables"] += 1
+    _kernels.launch("tables", "blg_load_tables", dev, buf3.data_ptr(), wc,
+                    P, *[t.data_ptr() for t in out])
     return out

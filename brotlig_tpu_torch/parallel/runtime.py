@@ -1,12 +1,14 @@
-"""Multi-archive decode and encode (port of brotlig_tpu/parallel/runtime.py
-on one process's share; the cross-process gathers are not ported yet).
+"""Multi-archive and multi-process decode and encode (port of
+brotlig_tpu/parallel/runtime.py).
 
 Archives are assigned to processes statically, archive i to process
 i % nprocs: the deterministic schedule that replaces the reference's
 atomic work queue. Each process decodes its own share, and every output
 keeps its archive index, so gathering them needs no ordering step. The
 process identity comes from torch.distributed when it is initialised,
-else it is (0, 1); a caller may pass its own.
+else it is (0, 1); a caller may pass its own. The gathers
+(decode_archives_gather, encode_archives_gather) hand every process every
+output over torch.distributed, one all_gather of owned bytes each.
 
 decode_archives_batched pools the pages of many archives into shared
 device batches, the way a loader streams thousands of small assets: the
@@ -21,7 +23,7 @@ from typing import Sequence
 import numpy as np
 
 from .. import api
-from ..format.headers import parse_container
+from ..format.headers import StreamHeader, parse_container
 from ..ops.decode import (_check_opts, decode_batches, decode_stream,
                           resolve_device)
 from ..ops.precondition import postprocess_device
@@ -142,11 +144,110 @@ def decode_archives_batched(blobs: Sequence[bytes], batch_pages: int = 256,
 
 
 def encode_archives(datas: Sequence[bytes], page_size: int = 65536,
-                    process=None, quality: int = 11,
-                    device="cuda") -> dict[int, bytes]:
-    """Encode this process's share of `datas` with api.encode's default
-    route, the hybrid, on `device` (which parses greedily whatever
-    `quality` says). Returns {archive_index: container}."""
+                    process=None, quality: int = 11, device="cuda",
+                    backend: str = "hybrid") -> dict[int, bytes]:
+    """Encode this process's share of `datas` with api.encode on `backend`
+    (on `device` for the device backends). The default, the hybrid, runs
+    on the card and parses greedily whatever `quality` says;
+    backend="native" is the host's native encoder, brotlig_tpu's default,
+    and gives its bytes. Returns {archive_index: container}."""
     return {i: api.encode(datas[i], page_size=page_size, quality=quality,
-                          device=device)
+                          device=device, backend=backend)
             for i in my_archive_indices(len(datas), process)}
+
+
+def _exchanges(nproc: int) -> bool:
+    """Whether a gather exchanges bytes: with more than one process, and
+    whenever a group is initialised, a one-rank group too; one process
+    without a group keeps its local outputs."""
+    import torch.distributed as dist
+    return nproc > 1 or (dist.is_available() and dist.is_initialized())
+
+
+def _collective_device():
+    """Where the initialised group's backend takes its tensors: the
+    thread's current CUDA device for NCCL, the host otherwise (gloo)."""
+    import torch
+    import torch.distributed as dist
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def _all_gather(t):
+    """[nproc] tensors: every process's `t` (the same shape on each)."""
+    import torch
+    import torch.distributed as dist
+    dev = _collective_device()
+    t = t.to(dev)
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, t)
+    return [p.cpu() for p in parts]
+
+
+def _gather_owned(local: dict, sizes: list, nproc: int) -> list[bytes]:
+    """Every archive's bytes on every process, in archive order, from each
+    process's own (`local`, {archive_index: bytes}).
+
+    Owner p's buffer holds archives p, p + nproc, ... concatenated, padded
+    to the largest owner's share; one all_gather moves the buffers, so each
+    receiver gets every archive's bytes once. `sizes` (every archive's
+    length) places them, on every process alike."""
+    import torch
+    offsets, share = [], [0] * nproc
+    for i, n in enumerate(sizes):
+        offsets.append(share[i % nproc])
+        share[i % nproc] += n
+    buf = np.zeros(max(max(share), 1), np.uint8)
+    for i, b in local.items():
+        buf[offsets[i]: offsets[i] + len(b)] = np.frombuffer(b, np.uint8)
+    g = [p.numpy() for p in _all_gather(torch.from_numpy(buf))]
+    return [g[i % nproc][offsets[i]: offsets[i] + n].tobytes()
+            for i, n in enumerate(sizes)]
+
+
+def decode_archives_gather(blobs: Sequence[bytes], batch_pages: int = 256,
+                           process=None, device="cuda") -> list[bytes]:
+    """Decode this process's share of `blobs` on `device`, then gather so
+    that every process holds every output, in archive order.
+
+    Only owned bytes move (see _gather_owned): the output sizes come from
+    the stream headers, which every process holds, so no sizes are
+    exchanged. With more than one process the group must be initialised
+    (torch.distributed), with gloo or NCCL; an initialised group always
+    exchanges, a one-rank group too, and one process without a group gets
+    its local decode. For the flow where no bytes move see
+    decode_archives_to_dir."""
+    local = decode_archives(blobs, batch_pages, process, device)
+    _, nproc = process if process is not None else process_info()
+    if not _exchanges(nproc):
+        return [local[i] for i in range(len(blobs))]
+    sizes = [StreamHeader.unpack(b).uncompressed_size for b in blobs]
+    return _gather_owned(local, sizes, nproc)
+
+
+def encode_archives_gather(datas: Sequence[bytes], page_size: int = 65536,
+                           process=None, quality: int = 11, device="cuda",
+                           backend: str = "hybrid") -> list[bytes]:
+    """Encode this process's share of `datas` (encode_archives), then
+    gather so that every process holds every container, in input order:
+    the multi-process analog of the reference's container assembly
+    (BrotligEncoder.cpp:469-516).
+
+    Compressed sizes are known to their owner only, so one all_gather of
+    the [n] int64 sizes comes first; then the owned bytes move as in
+    decode_archives_gather, and as there one process without a group
+    gets its local encode."""
+    import torch
+    local = encode_archives(datas, page_size, process, quality, device,
+                            backend)
+    _, nproc = process if process is not None else process_info()
+    n = len(datas)
+    if not _exchanges(nproc):
+        return [local[i] for i in range(n)]
+    sz = torch.zeros(n, dtype=torch.int64)
+    for i, b in local.items():
+        sz[i] = len(b)
+    sz_all = _all_gather(sz)
+    return _gather_owned(local, [int(sz_all[i % nproc][i]) for i in range(n)],
+                         nproc)

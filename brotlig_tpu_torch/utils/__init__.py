@@ -1,1 +1,2 @@
-"""Host utilities of the port (the plain-brotli comparison codec)."""
+"""Host utilities of the port (the plain-brotli comparison codec, the
+corpus recipe)."""

@@ -33,6 +33,16 @@ and one by one. End to end: both routes in turns, the pipeline against
 the serial order it replaced, a per-stage host breakdown, and the
 config-3 texture to host bytes and kept on the card.
 
+Then the pages split over devices and the gathers across processes: the
+16 MiB container through decode_stream_sharded over every card and over
+two shares of cuda:0, each equal to the input with the tables and fused
+decode kernels launched once a batch of each share, timed in turns beside
+decode(); entry.dryrun_multichip over every card; the pool of archives
+through decode_archives_gather and 8 corpus inputs through
+encode_archives_gather in two gloo worker processes that both run on
+cuda:0, then in a one-rank NCCL group, every rank's lists equal to the
+inputs; and both profile tools (brotlig_tpu_torch/tools) once, small.
+
 Then it encodes on the card (the matcher and the serializer are torch
 ops): the full-device q1 path, encode_pages_device(quality=1), on 32
 pages of the corpus, its matcher, serializer and host stages timed, its
@@ -61,7 +71,6 @@ printing any result.
 """
 from __future__ import annotations
 
-import glob
 import json
 import os
 import subprocess
@@ -89,62 +98,6 @@ def gpu_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60)
     return res.stdout.strip().splitlines()[0]
-
-
-# ---------------------------------------------------------------------------
-# Corpus: the recipe of bench.py (make_corpus_pages), half real files and
-# half synthetic text / structured / repetitive pages
-# ---------------------------------------------------------------------------
-
-def real_bytes(min_len: int) -> bytes:
-    picks = (sorted(glob.glob(os.path.join(ROOT, "brotlig_tpu", "**", "*.py"),
-                              recursive=True))
-             + sorted(glob.glob(os.path.join(ROOT, "brotlig_tpu", "native",
-                                             "*.cpp")))
-             + [os.path.join(ROOT, "SURVEY.md"), os.path.join(ROOT, "PERF.md")]
-             + sorted(glob.glob("/usr/bin/*"))[:40]
-             + sorted(glob.glob("/usr/lib/x86_64-linux-gnu/*.so*"))[:40])
-    buf = bytearray()
-    for f in picks:
-        try:
-            with open(f, "rb") as fh:
-                buf += fh.read(2 << 20)
-        except OSError:
-            continue
-        if len(buf) >= min_len:
-            break
-    if not buf:
-        buf = bytearray(b"fallback " * 8)
-    while len(buf) < min_len:
-        buf += buf[: min_len - len(buf)]
-    return bytes(buf)
-
-
-def corpus(n_pages: int, page: int = PAGE) -> bytes:
-    import numpy as np
-    words = [b"the ", b"of ", b"and ", b"compression ", b"stream ",
-             b"page ", b"huffman ", b"entropy ", b"decode ", b"brotli "]
-    real = real_bytes(((n_pages + 1) // 2) * page)
-    nextreal = 0
-    pages = []
-    for i in range(n_pages):
-        r = np.random.default_rng(i)
-        kind = i % 6
-        if kind in (0, 2, 4):
-            pages.append(real[nextreal * page:(nextreal + 1) * page])
-            nextreal += 1
-        elif kind == 1:
-            buf = bytearray()
-            while len(buf) < page:
-                buf += words[int(r.integers(0, len(words)))]
-            pages.append(bytes(buf[:page]))
-        elif kind == 3:
-            a = (r.integers(0, 16, page) + (np.arange(page) // 256) % 64) % 256
-            pages.append(a.astype(np.uint8).tobytes())
-        else:
-            pat = r.integers(0, 256, 173, dtype=np.uint8).tobytes()
-            pages.append((pat * (page // len(pat) + 1))[:page])
-    return b"".join(pages)
 
 
 # ---------------------------------------------------------------------------
@@ -885,6 +838,206 @@ def pool_batches(blobs) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Sharded and distributed: the pages of one stream split over devices
+# (decode_stream_sharded), the dry run of entry.py, the gathers across
+# processes on torch.distributed, and the profile tools
+# ---------------------------------------------------------------------------
+
+GATHER_WORKER = r"""
+import hashlib, json, pickle, sys, time
+import torch
+import torch.distributed as dist
+rank, world, backend, tmp = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], \
+    sys.argv[4]
+torch.cuda.set_device(0)
+dist.init_process_group(backend, init_method=f"file://{tmp}/{backend}.store",
+                        world_size=world, rank=rank)
+from brotlig_tpu_torch import _kernels, native
+from brotlig_tpu_torch.parallel import runtime
+with open(f"{tmp}/inputs.pkl", "rb") as f:
+    blobs, datas, enc_in = pickle.load(f)
+res = {"rank": rank, "backend": backend, "world": world}
+for run in range(2):                # the first run warms, the second is timed
+    dist.barrier()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    outs = runtime.decode_archives_gather(blobs)
+    res["decode_ms"] = (time.perf_counter() - t0) * 1e3
+    res["launches"] = dict(_kernels.LAUNCHES)
+    res["decode_ok"] = outs == datas
+    dist.barrier()
+    t0 = time.perf_counter()
+    encs = runtime.encode_archives_gather(enc_in)
+    res["encode_ms"] = (time.perf_counter() - t0) * 1e3
+res["encode_ok"] = all(native.decode(b) == d for b, d in zip(encs, enc_in))
+res["encoded"] = hashlib.sha256(b"".join(encs)).hexdigest()
+res["encoded_bytes"] = sum(map(len, encs))
+dist.destroy_process_group()
+print(json.dumps(res))
+"""
+
+
+def sharded_phase(data: bytes, blob: bytes, gpu) -> dict:
+    """decode_stream_sharded of the 16 MiB container over device_list()
+    (every card) and over [cuda:0, cuda:0] (two shares of one card), each
+    equal to the input with the tables and fused decode kernels launched
+    once a batch of each share; then all of them timed in turns beside
+    decode() on the same container. Returns the launches of the checked
+    runs."""
+    import numpy as np
+    import torch
+    from brotlig_tpu_torch import _kernels, decode
+    from brotlig_tpu_torch.format.headers import parse_container
+    from brotlig_tpu_torch.parallel.sharding import (decode_stream_sharded,
+                                                     device_list,
+                                                     shard_bounds)
+    n_comp = len(parse_container(blob).compressed_page_indices())
+    lists = {"device_list()": None, "[cuda:0, cuda:0]": ["cuda:0", "cuda:0"]}
+    total = {"tables": 0, "decode": 0}
+    for name, devs in lists.items():
+        shares = [hi - lo for lo, hi in
+                  shard_bounds(n_comp, len(device_list(devs)))]
+        want = sum(-(-n // BATCH) for n in shares)
+        _kernels.reset_launches()
+        got = decode_stream_sharded(blob, devs)
+        counts = dict(_kernels.LAUNCHES)
+        if got != data:
+            raise AssertionError(f"decode_stream_sharded over {name} "
+                                 "differs from the input")
+        if counts != {"tables": want, "decode": want, "phase_a": 0,
+                      "sweep": 0, "dp_parse": 0}:
+            raise AssertionError(f"decode_stream_sharded over {name} "
+                                 f"launched {counts}, want {want} each")
+        for k in total:
+            total[k] += counts[k]
+        print(f"[smoke] decode_stream_sharded, 16 MiB q11 container over "
+              f"{name} = {[str(d) for d in device_list(devs)]}: == input; "
+              f"shares of {shares} pages, launches {counts} (K1 and K2 "
+              f"once a batch of each share)", flush=True)
+    runs = {"decode()": lambda: decode(blob, device="cuda"),
+            **{f"sharded {name}": (lambda d=devs: decode_stream_sharded(
+                blob, d)) for name, devs in lists.items()}}
+    times = {name: [] for name in runs}
+    for r in range(5):
+        for name in (list(runs) if r % 2 else list(runs)[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = runs[name]()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            if got != data:
+                raise AssertionError(f"timed {name} differs")
+    print("[smoke] end to end, 16 MiB q11 container, fused route, in "
+          "turns: " + "; ".join(
+              f"{name} {[round(t, 3) for t in ts]} ms (median of warm "
+              f"runs {float(np.median(ts[1:])):.3f} ms)"
+              for name, ts in times.items()) + f" [{gpu}]", flush=True)
+    return total
+
+
+def dryrun_phase(gpu) -> dict:
+    """entry.dryrun_multichip over every card: the launches of the tables
+    and fused decode kernels, once a batch of each share of the BC1
+    container and once a device for the one-page-a-device step. Returns
+    them."""
+    import torch
+    from brotlig_tpu_torch import _kernels, entry
+    from brotlig_tpu_torch.format.headers import parse_container
+    from brotlig_tpu_torch.parallel.sharding import shard_bounds
+    n = torch.cuda.device_count()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(n)
+    secs = time.perf_counter() - t0
+    counts = dict(_kernels.LAUNCHES)
+    _, blob = entry.bc1_container(64 * 1024, max(n, 4), "cuda")
+    n_comp = len(parse_container(blob).compressed_page_indices())
+    want = sum(hi > lo for lo, hi in shard_bounds(n_comp, n)) + n
+    if counts != {"tables": want, "decode": want, "phase_a": 0, "sweep": 0,
+                  "dp_parse": 0}:
+        raise AssertionError(f"dryrun_multichip({n}) launched {counts}, "
+                             f"want {want} each")
+    print(f"[smoke] dryrun_multichip({n}): {secs:.1f} s, launches {counts} "
+          f"[{gpu}]", flush=True)
+    return {k: counts[k] for k in ("tables", "decode")}
+
+
+def gather_phase(blobs, datas, enc_in, gpu) -> None:
+    """decode_archives_gather of the archive pool and encode_archives_gather
+    (the hybrid on the card) of enc_in, in two gloo worker processes that
+    both decode on cuda:0, then in a one-rank NCCL group: every rank's
+    lists equal the inputs (the encoded ones through the native decoder,
+    and the same on every rank). Each worker runs both gathers twice and
+    times the second run (the first builds the texture maps and warms
+    the card)."""
+    import pickle
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "inputs.pkl"), "wb") as f:
+            pickle.dump((blobs, datas, enc_in), f)
+        for backend, world in (("gloo", 2), ("nccl", 1)):
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen(
+                [sys.executable, "-c", GATHER_WORKER, str(r), str(world),
+                 backend, tmp], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True) for r in range(world)]
+            try:
+                outs = [p.communicate(timeout=300) for p in procs]
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.communicate()
+            for p, (out, err) in zip(procs, outs):
+                if p.returncode != 0:
+                    raise AssertionError(f"{backend} gather worker failed "
+                                         f"({p.returncode}):\n{err[-3000:]}")
+            res = [json.loads(out.strip().splitlines()[-1])
+                   for out, _ in outs]
+            for r in res:
+                if not (r["decode_ok"] and r["encode_ok"]) or \
+                        r["launches"]["tables"] < 1 or \
+                        r["launches"]["decode"] < 1:
+                    raise AssertionError(f"{backend} gather: {r}")
+            if len({r["encoded"] for r in res}) != 1:
+                raise AssertionError(f"{backend} gather: the ranks hold "
+                                     "different encoded archives")
+            print(f"[smoke] gathers, {backend}, {world} process(es) on "
+                  f"cuda:0 ({time.perf_counter() - t0:.1f} s with start-up):"
+                  f" every rank == inputs; " + "; ".join(
+                      f"rank {r['rank']}: decode_archives_gather of "
+                      f"{len(blobs)} archives {r['decode_ms']:.3f} ms "
+                      f"(launches {r['launches']}), encode_archives_gather "
+                      f"of {len(enc_in)} inputs {r['encode_ms']:.3f} ms"
+                      for r in res) + f" [{gpu}]", flush=True)
+
+
+def profile_phase(gpu) -> None:
+    """Both profile tools once on the card, at a small size: each one's
+    JSON line, printed after a tag."""
+    import contextlib
+    import io
+    from brotlig_tpu_torch.tools import profile_decode, profile_encode
+    for tool, pages in ((profile_decode, "16"), (profile_encode, "8")):
+        env = {"BENCH_PAGES": pages, "PROF_REPS": "2"}
+        old = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                tool.main(["--device", "cuda"])
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
+        print(f"[smoke] {tool.__name__.rsplit('.', 1)[1]} (BENCH_PAGES "
+              f"{pages}, PROF_REPS 2): {buf.getvalue().strip()} [{gpu}]",
+              flush=True)
+
+
+# ---------------------------------------------------------------------------
 # Encode on the card: the device matcher and serializer (the q1 tier), the
 # hybrid route, preconditioned textures and the command line
 # ---------------------------------------------------------------------------
@@ -893,33 +1046,6 @@ ENC_STRIDE = 8       # bench.py's encode subset (bench.py:622-645): every
 ENC_PAGES = 32       # 8th page of the 256-page corpus, 32 pages
 ENC_CHECK = 4        # every 4th of those pages is also encoded on the CPU
 ENC_REPS = 3
-
-
-def device_work(fn) -> dict:
-    """What one call of fn asks of the card: the aten ops it dispatches,
-    the CUDA kernels torch.profiler traces (None where the trace holds no
-    device event) and those kernels' summed device ms."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    class Ops(TorchDispatchMode):
-        n = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            Ops.n += 1
-            return func(*args, **(kwargs or {}))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        with Ops():
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.name.startswith(("Memcpy", "Memset"))]
-    return {"aten_ops": Ops.n, "kernels": len(kernels) or None,
-            "kernel_ms": (sum(e.device_time_total for e in kernels) / 1e3
-                          if kernels else None)}
 
 
 def container_of(blobs, page: int) -> bytes:
@@ -972,6 +1098,7 @@ def encode_q1_phase(data: bytes, dev, gpu) -> dict:
                                                    encode_pages_device,
                                                    pack_partitioned,
                                                    page_blobs)
+    from brotlig_tpu_torch.tools.profile_decode import device_work
     idx = list(range(0, len(data) // PAGE, ENC_STRIDE))[:ENC_PAGES]
     arr = np.stack([np.frombuffer(data[i * PAGE:(i + 1) * PAGE], np.uint8)
                     for i in idx])
@@ -1357,6 +1484,7 @@ def q11_phase(data: bytes, dev, gpu, tex_dp) -> dict:
     from brotlig_tpu_torch.ops import parse_dp
     from brotlig_tpu_torch.ops.encode import find_candidates, find_commands
     from brotlig_tpu_torch.ops.encode_pack import encode_pages_device
+    from brotlig_tpu_torch.tools.profile_decode import device_work
     npages = len(data) // PAGE
     idx = list(range(0, npages, max(1, npages // Q11_PAGES)))[:Q11_PAGES]
     arr = np.stack([np.frombuffer(data[i * PAGE:(i + 1) * PAGE], np.uint8)
@@ -1533,6 +1661,7 @@ def main() -> int:
     from brotlig_tpu_torch.ops import tables_kernel as tk
     from brotlig_tpu_torch.ops.decode import staged_batches
     from brotlig_tpu_torch.state import tables_from_lengths
+    from brotlig_tpu_torch.utils.corpus import corpus
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -1837,6 +1966,19 @@ def main() -> int:
         f"warm runs)" for m, ts in times.items())
         + f"; postprocess alone {post[name]['ms']:.4f} ms, bound "
         f"{post[name]['bound_ms']:.4f} ms [{gpu}]", flush=True)
+
+    # ---- sharded and distributed ----
+    t0 = time.perf_counter()
+    sharded = sharded_phase(data16, blob16, gpu)
+    for k, v in dryrun_phase(gpu).items():
+        sharded[k] += v
+    for k in sharded:
+        fused[k] += sharded[k]
+    gather_phase(blobs, datas,
+                 [data16[i << 20: (i + 1) << 20] for i in range(8)], gpu)
+    profile_phase(gpu)
+    print(f"[smoke] sharded and distributed phase "
+          f"{time.perf_counter() - t0:.1f} s [{gpu}]", flush=True)
 
     # ---- encode on the card: full-device q1, hybrid, textures, the cli ----
     t0 = time.perf_counter()

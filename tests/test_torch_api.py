@@ -46,7 +46,12 @@ def test_import_pulls_in_no_jax():
               "brotlig_tpu_torch.ops.parse_dp",
               "brotlig_tpu_torch.ops.dp_kernel",
               "brotlig_tpu_torch.cli",
-              "brotlig_tpu_torch.utils.brotli_codec"):
+              "brotlig_tpu_torch.utils.brotli_codec",
+              "brotlig_tpu_torch.parallel.sharding",
+              "brotlig_tpu_torch.entry",
+              "brotlig_tpu_torch.tools.profile_decode",
+              "brotlig_tpu_torch.tools.profile_encode",
+              "brotlig_tpu_torch.utils.corpus"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -613,3 +613,103 @@ def test_dp_candidates_and_cost_model_card_equal_cpu(cuda_dev):
             pages, in_sizes, *greedy, *cand)])
     for g, w in zip(*outs):
         assert torch.equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# Pages split over devices (parallel/sharding.py), and every wrapper
+# launching on its tensors' device
+# ---------------------------------------------------------------------------
+
+def test_decode_pages_sharded_kernel_over_two_shares(cuda_dev):
+    """The tables and fused decode kernels over two shares of one card
+    equal the plain route over the same shares, on the 64 KiB container's
+    first batch."""
+    from brotlig_tpu_torch.parallel.sharding import (
+        decode_pages_sharded, decode_pages_sharded_kernel)
+    data, blob = container(65536)
+    info = parse_container(blob)
+    comp = info.compressed_page_indices()
+    W = 65536 // 4 + 2
+    arr = np.zeros((len(comp), W * 4), np.uint8)
+    for r, i in enumerate(comp):
+        off, n = int(info.offsets[i]), int(info.sizes[i])
+        arr[r, :n] = np.frombuffer(blob, np.uint8, n, off)
+    words = arr.view(np.uint32).reshape(len(comp), W)
+    sizes = info.sizes[comp]
+    devs = ["cuda:0", "cuda:0"]
+    _kernels.reset_launches()
+    out, isd = decode_pages_sharded_kernel(words, sizes, 65536, devs)
+    assert _kernels.LAUNCHES["tables"] == 2
+    assert _kernels.LAUNCHES["decode"] == 2
+    want, want_isd = decode_pages_sharded(words, sizes, 65536, devs)
+    assert torch.equal(out, want) and torch.equal(isd, want_isd)
+    for r, i in enumerate(comp):
+        assert out[r].numpy().tobytes() == data[i * 65536:(i + 1) * 65536]
+
+
+@pytest.mark.parametrize("n_shares", [1, 2])
+def test_decode_stream_sharded_cuda(cuda_dev, n_shares):
+    """decode_stream_sharded over [cuda:0] and [cuda:0, cuda:0] equals the
+    input (a plain container of three batches a share, and a
+    preconditioned texture); K1 and K2 launch once a batch of each
+    share."""
+    from brotlig_tpu_torch.parallel.sharding import (decode_stream_sharded,
+                                                     shard_bounds)
+    data = b"".join(make_data(KINDS[i % 6], 32768, seed=i)
+                    for i in range(12 * n_shares))
+    blob = native.encode(data, page_size=32768, quality=1)
+    n_comp = len(parse_container(blob).compressed_page_indices())
+    devs = ["cuda:0"] * n_shares
+    _kernels.reset_launches()
+    assert decode_stream_sharded(blob, devs, batch_pages=4) == data
+    want = sum(-(-(hi - lo) // 4) for lo, hi in shard_bounds(n_comp,
+                                                               n_shares))
+    assert _kernels.LAUNCHES["tables"] == want
+    assert _kernels.LAUNCHES["decode"] == want
+    from brotlig_tpu_torch.entry import bc1_container
+    tex, tblob = bc1_container(65536, 4, "cuda")
+    assert decode_stream_sharded(tblob, devs) == tex
+
+
+def test_every_wrapper_launches_on_its_tensors_device(cuda_dev):
+    """From a thread whose current device is cuda:0, every kernel wrapper
+    given tensors on cuda:1 launches there and equals its plain version
+    (the C entry points launch on the current device; the wrappers make
+    the tensors' device current)."""
+    import threading
+    from brotlig_tpu_torch.ops import dp_kernel, parse_dp
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev1 = torch.device("cuda", 1)
+    errors = []
+
+    def run():
+        try:
+            torch.cuda.set_device(0)
+            datas, st, page_size = decode_case("65536", dev1)
+            tabs = assert_tables_equal(st.buf)
+            out, _, status = decode_kernel.decode_fused(st.buf, st.npd,
+                                                        tabs, page_size)
+            a = phase_a_kernel.phase_a(st.buf, st.npd, tabs, page_size)
+            swept = sweep_kernel.sweep(a.ncmds, a.litq, a.ins, a.cpy,
+                                       a.dist, page_size, 1024)
+            torch.cuda.synchronize(dev1)
+            assert torch.cuda.current_device() == 0
+            assert out.device == dev1 and bool((status == 0).all())
+            for r, d in enumerate(datas):
+                assert out[r].cpu().numpy().tobytes() == d
+                assert swept[r].cpu().numpy().tobytes() == d
+            arr, sizes = dp_pages(TEST_PARSE_DP_KINDS, 2048)
+            ins = dp_inputs(arr, sizes, 256, dev1)
+            got = dp_kernel.dp_parse_cuda(*ins, 32, 256, 2)
+            torch.cuda.synchronize(dev1)
+            assert torch.equal(got, parse_dp.dp_parse_plain(*ins, 32, 256,
+                                                            2))
+        except BaseException as e:      # re-raised in the test's thread
+            errors.append(e)
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(timeout=600)
+    assert not t.is_alive()
+    if errors:
+        raise errors[0]
