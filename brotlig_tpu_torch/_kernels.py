@@ -37,13 +37,13 @@ CSRC = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libbrotlig_kernels.so")
 SOURCES = ("tables.cu", "decode.cu", "phase_a.cu", "sweep.cu",
-           "dp_parse.cu")
+           "dp_parse.cu", "pack.cu")
 HEADERS = ("lane_ops.cuh", "page_round.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"tables": 0, "decode": 0, "phase_a": 0, "sweep": 0,
-            "dp_parse": 0}
+            "dp_parse": 0, "pack": 0}
 SWEEP_LAUNCHES = {128: 0, 512: 0, 1024: 0, 2048: 0}
 
 _lock = threading.Lock()
@@ -138,6 +138,12 @@ def library():
                                      i32, i32, vp, vp, vp]
         lib.blg_dp_smem.restype = i32
         lib.blg_dp_smem.argtypes = [i32, i32, i32]
+        lib.blg_pack_pages.restype = i32
+        lib.blg_pack_pages.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32, i32,
+                                       i32, i32, i32, vp, vp, vp, vp]
+        for fn in (lib.blg_pack_scratch_ints, lib.blg_pack_info_offset):
+            fn.restype = ctypes.c_longlong
+            fn.argtypes = [i32, i32, i32]
         _lib = lib
         return _lib
 

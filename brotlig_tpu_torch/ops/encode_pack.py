@@ -1,6 +1,9 @@
 """Brotli-G page serialization on a torch device (port of
 brotlig_tpu/ops/encode_pack.py, whose XLA functions become torch ops
-here; none of it is a Pallas kernel).
+here; none of it is a Pallas kernel). On CUDA tensors the serializer is
+one launch of a hand-written kernel (csrc/pack.cu, ops/pack_kernel.py),
+where the JAX package compiles pack_pages_device with jax.jit; the torch
+ops below are its plain version and the CPU route.
 
 Given bulk-greedy commands (ops/encode.py::find_commands), whole
 compressed pages are packed on the device: histograms, prefix codes, the
@@ -33,7 +36,7 @@ import numpy as np
 import torch
 
 from ..format import constants as C
-from . import arith_lut
+from . import arith_lut, pack_kernel
 from .decode import resolve_device
 from .encode import (assemble, check_feedback, find_commands, page_rows,
                      stream_setup)
@@ -601,28 +604,61 @@ def pack_pages_device(pages, in_sizes, ins, cpy, dist, ncmds,
     a page whose compressed size is not below its input size must be
     stored raw by the caller (out_sizes is still the compressed size, or
     page_size + 1 where a stream overflowed its word budget).
-    isdelta: optional [P] delta-encoded flags for the page header byte."""
+    isdelta: optional [P] delta-encoded flags for the page header byte.
+
+    CUDA tensors go to the hand-written kernel (csrc/pack.cu, one launch),
+    CPU tensors to the plain version, pack_pages_plain."""
+    if pages.device.type == "cuda":
+        return pack_kernel.pack_cuda(pages, in_sizes, ins, cpy, dist, ncmds,
+                                     page_size, max_cmds, isdelta)
+    return pack_pages_plain(pages, in_sizes, ins, cpy, dist, ncmds,
+                            page_size, max_cmds, isdelta)
+
+
+def stream_budget(page_size: int) -> int:
+    """Wst, the 32-bit words a sub-stream may fill: three quarters of a
+    stored page's share, plus 16 for the tables."""
+    return (page_size // NBS) // 4 * 3 + 16
+
+
+def page_histograms(pages, in_sizes, ins, cpy, dist, ncmds):
+    """The wire fields and the three histograms a page's prefix codes are
+    built from (int64 inputs): (fields, ntotal, has_tail, npostfix, ndist
+    as _build_fields returns them, literal_cover's (cmd_of, covered,
+    in_lit), (command [P, 728], distance [P, 544], literal [P, 256])
+    histograms). The literal histogram counts the insert regions and the
+    tail; the command one also the tail's and the sentinel's symbols."""
+    N = ins.shape[1]
+    fields, ntotal, has_tail, npostfix, ndist = _build_fields(
+        in_sizes, ins, cpy, dist, ncmds)
+    valid = torch.arange(N, device=ins.device)[None, :] < ncmds[:, None]
+    hist_cmd = _histogram(fields["prefix"][0], valid, A_CMD)
+    hist_cmd.scatter_add_(1, fields["prefix"][1].clamp(0, A_CMD - 1)[:, None],
+                          has_tail.to(I64)[:, None])
+    hist_cmd[:, 704] += 1
+    hist_dst = _histogram(fields["dsym"][0], fields["sdist"][0] > 0, A_DST)
+    cover = literal_cover(in_sizes, ins, cpy, valid, pages.shape[1])
+    hist_lit = _histogram(pages.to(I64), cover[2], A_LIT)
+    return (fields, ntotal, has_tail, npostfix, ndist, cover,
+            (hist_cmd, hist_dst, hist_lit))
+
+
+def _slot_planes(pages, in_sizes, ins, cpy, dist, ncmds, page_size: int,
+                 max_cmds: int):
+    """Every sub-stream's emission slots in order: (nbits [P, 32, K],
+    values [P, 32, K], npostfix [P], ndist [P]): the table block (the
+    three tables' header, code-length or symbol column and run-coded item
+    columns), then each round's five command fields and its literals."""
     P, S = pages.shape
     dev = pages.device
     in_sizes = in_sizes.to(I64)
     ncmds = ncmds.to(I64)
     ins, cpy, dist = ins.to(I64), cpy.to(I64), dist.to(I64)
     N = ins.shape[1]
-    fields, ntotal, has_tail, h_np, h_ndist = _build_fields(
-        in_sizes, ins, cpy, dist, ncmds)
-    valid = torch.arange(N, device=dev)[None, :] < ncmds[:, None]
-
-    # ---- histograms ----
-    hist_cmd = _histogram(fields["prefix"][0], valid, A_CMD)
-    hist_cmd.scatter_add_(1, fields["prefix"][1].clamp(0, A_CMD - 1)[:, None],
-                          has_tail.to(I64)[:, None])
-    hist_cmd[:, 704] += 1
-    hist_dst = _histogram(fields["dsym"][0], fields["sdist"][0] > 0, A_DST)
-
-    # literal histogram over the insert regions and the tail
-    _, _, in_lit = literal_cover(in_sizes, ins, cpy, valid, S)
+    (fields, ntotal, has_tail, h_np, h_ndist, (_, _, in_lit),
+     (hist_cmd, hist_dst, hist_lit)) = page_histograms(
+        pages, in_sizes, ins, cpy, dist, ncmds)
     page_bytes = pages.to(I64)
-    hist_lit = _histogram(page_bytes, in_lit, A_LIT)
     n_lits = hist_lit.sum(1)
     most_freq = torch.argmax(hist_lit, dim=1)
 
@@ -726,20 +762,38 @@ def pack_pages_device(pages, in_sizes, ins, cpy, dist, ncmds,
     # the static table block first
     nbits_all = torch.cat(tb_n + [nb], dim=2)
     vals_all = torch.cat(tb_v + [vv], dim=2) & M32
+    return nbits_all, vals_all, h_np, h_ndist
 
-    # ---- bit packing per stream ----
+
+def _stream_words(nbits_all, vals_all, Wst: int):
+    """Bit packing per stream: (words [P, 32, Wst], bits [P, 32]). Each
+    slot (<= 30 bits) touches at most two 32-bit words; bits past Wst
+    words are dropped."""
+    P = nbits_all.shape[0]
     offs = torch.cumsum(nbits_all, dim=2) - nbits_all           # exclusive
     stream_bits = offs[:, :, -1] + nbits_all[:, :, -1]
     sh = offs & 31
     live = nbits_all > 0
     contrib_a = torch.where(live, (vals_all << sh) & M32, 0)
     contrib_b = torch.where(live & (sh > 0), vals_all >> (32 - sh), 0)
-    Wst = (page_size // NBS) // 4 * 3 + 16
-    w_ids = torch.arange(Wst + 1, device=dev).expand(P, NBS, Wst + 1)
-    w_ids = w_ids.contiguous()
+    w_ids = torch.arange(Wst + 1, device=nbits_all.device)
+    w_ids = w_ids.expand(P, NBS, Wst + 1).contiguous()
     widx_a = offs >> 5
     stream_words = (_word_sum(contrib_a, widx_a, w_ids)
                     + _word_sum(contrib_b, widx_a + 1, w_ids)) & M32
+    return stream_words, stream_bits
+
+
+def pack_pages_plain(pages, in_sizes, ins, cpy, dist, ncmds,
+                     page_size: int, max_cmds: int, isdelta=None):
+    """pack_pages_device as torch ops on any device (the CPU route, and
+    the statement the CUDA kernel is held to)."""
+    P = pages.shape[0]
+    dev = pages.device
+    nbits_all, vals_all, h_np, h_ndist = _slot_planes(
+        pages, in_sizes, ins, cpy, dist, ncmds, page_size, max_cmds)
+    Wst = stream_budget(page_size)
+    stream_words, stream_bits = _stream_words(nbits_all, vals_all, Wst)
     overflow = stream_bits > 32 * Wst
 
     # ---- page header + size table (BrotligSwizzler.cpp:68-142 fixed
@@ -820,7 +874,21 @@ def command_bucket(n: int, max_cmds: int) -> int:
 
 def pack_partitioned(pages, in_sizes, page_size: int, max_cmds: int,
                      ins, cpy, dist, ncmds, isdelta):
-    """Pack pages in groups by command count (see command_bucket).
+    """Pack a batch of pages: on CUDA tensors one launch of the kernel
+    for the whole batch (a page's bytes do not depend on the command bound
+    it is packed under), on CPU tensors pack_partitioned_plain. Returns
+    (out [P, page_size] uint8, out_sizes [P] int64) on the pages'
+    device."""
+    if pages.device.type == "cuda":
+        return pack_kernel.pack_cuda(pages, in_sizes, ins, cpy, dist, ncmds,
+                                     page_size, max_cmds, isdelta)
+    return pack_partitioned_plain(pages, in_sizes, page_size, max_cmds,
+                                  ins, cpy, dist, ncmds, isdelta)
+
+
+def pack_partitioned_plain(pages, in_sizes, page_size: int, max_cmds: int,
+                           ins, cpy, dist, ncmds, isdelta):
+    """The plain version in groups by command count (see command_bucket).
 
     The schedule's round count, and with it every [P, 32, E] emission
     plane, follows the command bound; grouping pages by their real command
@@ -837,7 +905,7 @@ def pack_partitioned(pages, in_sizes, page_size: int, max_cmds: int,
     out_sizes = torch.empty(P, dtype=I64, device=pages.device)
     for b, idxs in sorted(groups.items()):
         rix = torch.tensor(idxs, device=pages.device)
-        o, sz = pack_pages_device(
+        o, sz = pack_pages_plain(
             pages[rix], in_sizes[rix], ins[rix, :b], cpy[rix, :b],
             dist[rix, :b], ncmds[rix], page_size, b, isdelta[rix])
         out[rix] = o

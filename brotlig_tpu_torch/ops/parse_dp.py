@@ -39,9 +39,9 @@ import torch
 from . import arith_lut
 from . import dp_kernel
 from .encode import _match_len, _quads, find_candidates, find_commands
-from .encode_pack import (A_CMD, A_DST, A_LIT, _build_fields, _choose_table,
-                          _encode_distance_vec, _histogram, _ring_before,
-                          combine_codes_vec, cpy_code_vec, literal_cover)
+from .encode_pack import (A_CMD, A_DST, A_LIT, _choose_table,
+                          _encode_distance_vec, _ring_before,
+                          combine_codes_vec, cpy_code_vec, page_histograms)
 
 I64 = torch.int64
 
@@ -112,19 +112,12 @@ def build_cost_model(pages, in_sizes, ins, cpy, dist, ncmds, base_len,
     in_sizes, ncmds = in_sizes.to(I64), ncmds.to(I64)
     ins, cpy, dist = ins.to(I64), cpy.to(I64), dist.to(I64)
     N = ins.shape[1]
-    fields, _, has_tail, npostfix, ndist = _build_fields(
-        in_sizes, ins, cpy, dist, ncmds)
+    # the histograms the serializer builds its tables from
+    (_, _, _, npostfix, ndist, (cmd_of, covered, _),
+     (hist_cmd, hist_dst, hist_lit)) = page_histograms(
+        pages, in_sizes, ins, cpy, dist, ncmds)
     ndirect = ndist << npostfix
     valid = torch.arange(N, device=dev)[None, :] < ncmds[:, None]
-
-    # ---- histograms, as pack_pages_device builds them ----
-    hist_cmd = _histogram(fields["prefix"][0], valid, A_CMD)
-    hist_cmd.scatter_add_(1, fields["prefix"][1].clamp(0, A_CMD - 1)[:, None],
-                          has_tail.to(I64)[:, None])
-    hist_cmd[:, 704] += 1
-    hist_dst = _histogram(fields["dsym"][0], fields["sdist"][0] > 0, A_DST)
-    cmd_of, covered, in_lit = literal_cover(in_sizes, ins, cpy, valid, S)
-    hist_lit = _histogram(pages.to(I64), in_lit, A_LIT)
 
     # ---- serializer table lengths -> per-symbol bits, float32 [P, A] ----
     def sym_cost(hist, total, A, pad):

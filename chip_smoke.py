@@ -43,11 +43,13 @@ encode_archives_gather in two gloo worker processes that both run on
 cuda:0, then in a one-rank NCCL group, every rank's lists equal to the
 inputs; and both profile tools (brotlig_tpu_torch/tools) once, small.
 
-Then it encodes on the card (the matcher and the serializer are torch
-ops): the full-device q1 path, encode_pages_device(quality=1), on 32
-pages of the corpus, its matcher, serializer and host stages timed, its
-aten ops, CUDA kernels and peak memory counted, and every 4th page's
-commands and bytes held to the plain CPU run (tolerance 0); the hybrid,
+Then it encodes on the card (the matcher is torch ops, the serializer
+the hand-written kernel csrc/pack.cu, one launch a batch): the
+full-device q1 path, encode_pages_device(quality=1), on 32 pages of the
+corpus, its matcher, serializer and host stages timed, its aten ops,
+CUDA kernels, serializer launches and peak memory counted, and every
+4th page's commands and bytes held to the plain CPU run (tolerance 0),
+each figure beside the eager serializer's run; the hybrid,
 brotlig_tpu_torch.encode, on the 16 MiB corpus beside the native q11
 ratio; the config-3 texture by both encode routes (the full route at q1
 and at q11, in 64-page batches, with its peak memory and DP launches); a
@@ -60,9 +62,13 @@ and its time a page there and on the texture's 64-page batch,
 find_candidates and the cost model held
 to the CPU run, the entry point timed, its kernels, peak memory and DP
 kernel launches counted, its stages timed on a copy of its steps, and
-its ratio beside q1 and the native q11 encoder. Every
-stream encoded on the card is decoded on the card on both routes, with
-the launch counts checked, and those launches join the kernels line.
+its ratio beside q1 and the native q11 encoder. Last, the serializer
+kernel is held to its plain version on the card (tolerance 0, bytes and
+sizes) on the q1 batch, both q11 packs and the texture's first q1 and
+q11 batches, timed beside its plain version and its bound, with its
+clock cycles by phase. Every stream encoded on the card is decoded on
+the card on both routes, with the launch counts checked, and those
+launches join the kernels line.
 
 Progress goes to earlier lines; the line before the last is the card's
 name and power limit, the last line a JSON verdict. Any failure raises
@@ -459,7 +465,7 @@ def want_launches(cases, runs) -> tuple:
     every kernel of its route launches once a batch: (counts, sweep
     counts by width)."""
     counts = {"tables": 0, "decode": 0, "phase_a": 0, "sweep": 0,
-              "dp_parse": 0}
+              "dp_parse": 0, "pack": 0}
     by_cw = dict.fromkeys(SWEEP_CWS, 0)
     for name, opts in runs:
         nb = batches_of(cases[name][1])
@@ -905,7 +911,7 @@ def sharded_phase(data: bytes, blob: bytes, gpu) -> dict:
             raise AssertionError(f"decode_stream_sharded over {name} "
                                  "differs from the input")
         if counts != {"tables": want, "decode": want, "phase_a": 0,
-                      "sweep": 0, "dp_parse": 0}:
+                      "sweep": 0, "dp_parse": 0, "pack": 0}:
             raise AssertionError(f"decode_stream_sharded over {name} "
                                  f"launched {counts}, want {want} each")
         for k in total:
@@ -952,10 +958,11 @@ def dryrun_phase(gpu) -> dict:
     _, blob = entry.bc1_container(64 * 1024, max(n, 4), "cuda")
     n_comp = len(parse_container(blob).compressed_page_indices())
     want = sum(hi > lo for lo, hi in shard_bounds(n_comp, n)) + n
+    # the BC1 container is encoded by the full route at q1: one batch
     if counts != {"tables": want, "decode": want, "phase_a": 0, "sweep": 0,
-                  "dp_parse": 0}:
+                  "dp_parse": 0, "pack": 1}:
         raise AssertionError(f"dryrun_multichip({n}) launched {counts}, "
-                             f"want {want} each")
+                             f"want {want} each and one pack")
     print(f"[smoke] dryrun_multichip({n}): {secs:.1f} s, launches {counts} "
           f"[{gpu}]", flush=True)
     return {k: counts[k] for k in ("tables", "decode")}
@@ -1066,10 +1073,10 @@ def decode_on_card(blob: bytes, data: bytes, what: str) -> dict:
     for route, opts, want in (
             ("fused", {},
              {"tables": nb, "decode": nb, "phase_a": 0, "sweep": 0,
-              "dp_parse": 0}),
+              "dp_parse": 0, "pack": 0}),
             ("two_phase", {"variant": "two_phase", "sweep_cw": 1024},
              {"tables": nb, "decode": 0, "phase_a": nb, "sweep": nb,
-              "dp_parse": 0})):
+              "dp_parse": 0, "pack": 0})):
         _kernels.reset_launches()
         if brotlig_tpu_torch.decode(blob, device="cuda", **opts) != data:
             raise AssertionError(f"{what}: decode on the card {opts} "
@@ -1092,7 +1099,7 @@ def encode_q1_phase(data: bytes, dev, gpu) -> dict:
     container decoded on the card. Returns the decode launches."""
     import numpy as np
     import torch
-    from brotlig_tpu_torch import native
+    from brotlig_tpu_torch import _kernels, native
     from brotlig_tpu_torch.ops.encode import find_commands
     from brotlig_tpu_torch.ops.encode_pack import (command_bucket,
                                                    encode_pages_device,
@@ -1129,11 +1136,16 @@ def encode_q1_phase(data: bytes, dev, gpu) -> dict:
         ms["total"] = total
         return blobs, cmds, ms
 
+    _kernels.reset_launches()
     blobs, cmds, _ = run()                                   # warm
     if encode_pages_device(arr, sizes, PAGE, isdelta, quality=1,
                            device="cuda") != blobs:
         raise AssertionError("encode_pages_device differs from its steps")
     runs = [run()[2] for _ in range(ENC_REPS)]
+    packs = _kernels.LAUNCHES["pack"]
+    if packs != ENC_REPS + 2:
+        raise AssertionError(f"full-device q1: {packs} pack kernel launches "
+                             f"for {ENC_REPS + 2} batches")
     med = {k: float(np.median([r[k] for r in runs])) for k in runs[0]}
     torch.cuda.reset_peak_memory_stats(dev)
     work = device_work(run)
@@ -1164,6 +1176,13 @@ def encode_q1_phase(data: bytes, dev, gpu) -> dict:
           f"{work['kernels'] or 'not measured'} CUDA kernels "
           f"({work['kernel_ms'] or 0:.3f} ms of kernel time); peak "
           f"{peak / 2**20:.1f} MiB allocated [{gpu}]", flush=True)
+    print(f"[smoke] full-device q1 beside the eager serializer's run "
+          f"(NVIDIA H100 80GB HBM3, 700.00 W): serializer "
+          f"{med['serializer']:.3f} ms (eager: {EAGER['q1 serializer']}), "
+          f"total {med['total']:.3f} ms (eager: {EAGER['q1 total']}), CUDA "
+          f"kernels a batch {work['kernels'] or 'not measured'} (eager: "
+          f"{EAGER['q1 kernels']}, {EAGER['q1 serializer kernels']} of them "
+          f"the serializer's) [{gpu}]", flush=True)
     for name, w in stage.items():
         busy = (f"{w['kernel_ms']:.3f} ms of kernel time in "
                 f"{med[name]:.3f} ms, device idle "
@@ -1200,7 +1219,10 @@ def encode_q1_phase(data: bytes, dev, gpu) -> dict:
             "matcher_ms": med["matcher"], "serializer_ms": med["serializer"],
             "host_ms": med["host"], "total_ms": med["total"],
             "gbps": nbytes / med["total"] / 1e6, "ratio": ratio,
-            "peak_mib": peak / 2**20, "stage": stage, **work}
+            "peak_mib": peak / 2**20, "stage": stage, "packs": packs,
+            "pack_in": (pages, in_sizes, PAGE, max_cmds,
+                        *[c.to(dev) for c in cmds], flags),
+            **work}
 
 
 def hybrid_phase(data: bytes, native_blob: bytes, gpu) -> dict:
@@ -1236,46 +1258,63 @@ def texture_encode_phase(name: str, tex: bytes, params, gpu) -> dict:
     its peak device memory and DP kernel launches (iterations x batches
     at q11, none otherwise) and decoded on the card back to the texture.
     Returns (the decode launches, the DP inputs of the q11 route's first
-    batch and iteration: litq, cand_len, dpackq, jointEq, jointLq)."""
+    batch and iteration: litq, cand_len, dpackq, jointEq, jointLq, and
+    the serializer's first-batch arguments: the q1 route's greedy pack and
+    the q11 route's DP pack, with the pack kernel launches of both)."""
     import torch
     import brotlig_tpu_torch
     from brotlig_tpu_torch import _kernels
-    from brotlig_tpu_torch.ops import parse_dp
+    from brotlig_tpu_torch.ops import encode_pack, parse_dp
     iters = int(os.environ.get("BLG_DP_ITERS", "3"))
     nbatch = -(-len(tex) // PAGE // 64)
-    launches, first = [], []
+    launches, first, packs = [], [], {}
     dp_parse = parse_dp.dp_parse
+    pack_partitioned = encode_pack.pack_partitioned
 
     def recorded(*args):
         if not first:
             first.extend(args[:5])
         return dp_parse(*args)
+
+    def pack_recorded(*args):
+        calls.append(args)
+        return pack_partitioned(*args)
     for backend, quality in (("hybrid", 11), ("full", 1), ("full", 11)):
+        calls = []
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _kernels.reset_launches()
         t0 = time.perf_counter()
         parse_dp.dp_parse = recorded
+        encode_pack.pack_partitioned = pack_recorded
         try:
             blob = brotlig_tpu_torch.encode(tex, dc_params=params,
                                             backend=backend, quality=quality,
                                             device="cuda")
         finally:
             parse_dp.dp_parse = dp_parse
+            encode_pack.pack_partitioned = pack_partitioned
         ms = (time.perf_counter() - t0) * 1e3
         peak = torch.cuda.max_memory_allocated()
         dp = _kernels.LAUNCHES["dp_parse"]
+        pk = _kernels.LAUNCHES["pack"]
+        full = backend == "full"
         want = iters * nbatch if (backend, quality) == ("full", 11) else 0
-        if dp != want:
+        want_pk = full * nbatch * (1 + (quality >= 10))
+        if dp != want or pk != want_pk:
             raise AssertionError(f"{name}, {backend} q{quality}: {dp} DP "
-                                 f"kernel launches, want {want}")
+                                 f"and {pk} pack kernel launches, want "
+                                 f"{want} and {want_pk}")
+        if full:    # the first batch's pack: greedy at q1, the DP's at q11
+            packs[f"q{quality}"] = calls[quality >= 10]
+            packs["launches"] = packs.get("launches", 0) + pk
         print(f"[smoke] {name}, {backend} encode (q{quality}) on the card: "
               f"{ms:.1f} ms, ratio {len(tex) / len(blob):.4f}, peak "
-              f"{peak / 2**20:.1f} MiB allocated, DP kernel launches {dp} "
-              f"[{gpu}]", flush=True)
+              f"{peak / 2**20:.1f} MiB allocated, DP kernel launches {dp}, "
+              f"pack kernel launches {pk} [{gpu}]", flush=True)
         launches.append(decode_on_card(blob, tex, f"{name}, {backend} "
                                        f"encode (q{quality})"))
-    return launches, tuple(first)
+    return launches, tuple(first), packs
 
 
 def cli_phase(data: bytes, gpu) -> None:
@@ -1304,6 +1343,143 @@ def cli_phase(data: bytes, gpu) -> None:
                 raise AssertionError("cli round trip differs")
     print(f"[smoke] cli round trip of {len(data)} B on the card == input",
           flush=True)
+
+
+# ---------------------------------------------------------------------------
+# The serializer kernel (csrc/pack.cu) against its plain version
+# ---------------------------------------------------------------------------
+
+# the encode path's figures when the serializer ran as eager torch ops
+# (this script's encode phases on an NVIDIA H100 80GB HBM3, 700.00 W;
+# PERF.md sections 5 and 6)
+EAGER = {"q1 serializer": 180.203, "q1 total": 226.768, "q1 kernels": 16768,
+         "q1 serializer kernels": 13403, "q11 entry": 809.0,
+         "q11 greedy pack": 65.704, "q11 DP pack": 127.907,
+         "q11 total": 776.076}
+
+
+def pack_bytes(pages, ncmds) -> int:
+    """The bytes the serializer must move: each page read once, the three
+    int32 fields of each command and each page's size and count, the
+    output pages and sizes written once."""
+    P, S = pages.shape
+    return 2 * P * S + 12 * int(ncmds.sum()) + 16 * P
+
+
+def pack_launch(args):
+    """The serializer's raw launch on pack_partitioned's arguments
+    (pages, in_sizes, page size, bound, ins, cpy, dist, ncmds, isdelta):
+    operands converted and outputs allocated once."""
+    import torch
+    from brotlig_tpu_torch import _kernels
+    pages, in_sizes, page, max_cmds, ins, cpy, dist, ncmds, flags = args
+    P, S = pages.shape
+    N = ins.shape[1]
+    dev = pages.device
+    i32 = [x.to(torch.int32).contiguous()
+           for x in (in_sizes, ins, cpy, dist, ncmds, flags)]
+    lib = _kernels.library()
+    out = torch.empty((P, page), dtype=torch.uint8, device=dev)
+    sizes = torch.empty(P, dtype=torch.int32, device=dev)
+    scratch = torch.empty((P, lib.blg_pack_scratch_ints(N, S, page)),
+                          dtype=torch.int32, device=dev)
+    return raw_launch(lib.blg_pack_pages,
+                      [pages.contiguous(), *i32, P, S, N, page, max_cmds,
+                       out, sizes, scratch], dev)
+
+
+def pack_diagnosis(args, got, want) -> str:
+    """Where the kernel departs from the plain version on a batch: the
+    first differing page, and the kernel's per-page record (grid choice,
+    table modes and lengths, stream bits) beside the plain version's."""
+    import torch
+    from brotlig_tpu_torch.ops import encode_pack as TP
+    from brotlig_tpu_torch.ops import pack_kernel as PK
+    pages, in_sizes, page, max_cmds, ins, cpy, dist, ncmds, flags = args
+    bad = [i for i in range(pages.shape[0])
+           if int(got[1][i]) != int(want[1][i])
+           or not torch.equal(got[0][i], want[0][i])]
+    i = bad[0]
+    one = [x[i:i + 1] for x in (pages, in_sizes, ins, cpy, dist, ncmds,
+                                flags)]
+    info = PK.pack_cuda(*one[:6], page, max_cmds, one[6],
+                        return_info=True)[2][0].cpu()
+    nb, vv, h_np, h_nd = TP._slot_planes(*one[:6], page, max_cmds)
+    _, bits = TP._stream_words(nb, vv, TP.stream_budget(page))
+    hists = TP.page_histograms(*[x.to(torch.int64) for x in one[:6]])[6]
+    lines = [f"pages differing: {bad[:16]} ({len(bad)}); page {i}: sizes "
+             f"{int(got[1][i])} vs {int(want[1][i])}, bytes differ at "
+             f"{torch.nonzero(got[0][i] != want[0][i])[:8, 0].tolist()}",
+             f"npostfix, ndist: kernel {int(info[PK.INFO_NPOSTFIX])}, "
+             f"{int(info[PK.INFO_NDIST])}; plain {int(h_np[0])}, "
+             f"{int(h_nd[0])}; kernel ntotal {int(info[PK.INFO_NTOTAL])}, "
+             f"grid keys {int(info[PK.INFO_NKEYS])}, offset codes "
+             f"{int(info[PK.INFO_OFFSET_CODES])}, literals "
+             f"{int(info[PK.INFO_NLITS])} (plain {int(hists[2].sum())}), "
+             f"most frequent {int(info[PK.INFO_MOST_FREQ])}"]
+    at = PK.INFO_LENS
+    for T, (h, A) in enumerate(zip(hists, (TP.A_CMD, TP.A_DST, TP.A_LIT))):
+        lens, mode, _, tsel, count = TP._choose_table(h, h.sum(1), A)
+        k = info[at:at + A].to(torch.int64)
+        at += A
+        diff = torch.nonzero(k != lens[0].cpu())[:8, 0].tolist()
+        lines.append(f"table {T}: mode {int(info[PK.INFO_MODE + T])} vs "
+                     f"{int(mode[0])}, count {int(info[PK.INFO_COUNT + T])} "
+                     f"vs {int(count[0])}, tsel {int(info[PK.INFO_TSEL + T])}"
+                     f" vs {int(tsel[0])}, lengths differ at {diff}")
+    kb = info[PK.INFO_BITS:PK.INFO_BITS + 32].tolist()
+    lines.append(f"stream bits: kernel {kb}; plain {bits[0].tolist()}")
+    return "\n".join("[smoke]   " + x for x in lines)
+
+
+def pack_phase(batches: dict, gpu) -> dict:
+    """The serializer kernel held to its plain version on the card
+    (tolerance 0, bytes and sizes) on each batch of pack_partitioned
+    arguments, its raw launch timed by CUDA events beside the plain
+    version's one run and its bound. Returns the measures by batch."""
+    import torch
+    from brotlig_tpu_torch.ops.encode_pack import pack_partitioned_plain
+    from brotlig_tpu_torch.ops.pack_kernel import (INFO_CLOCKS, PHASES,
+                                                   pack_cuda)
+    res = {}
+    for name, args in batches.items():
+        pages, in_sizes, page, max_cmds, ins, cpy, dist, ncmds, flags = args
+        got = pack_cuda(pages, in_sizes, ins, cpy, dist, ncmds, page,
+                        max_cmds, flags)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = pack_partitioned_plain(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max_abs_err(got, want)
+        if err != 0:
+            print(pack_diagnosis(args, got, want), flush=True)
+            raise AssertionError(f"pack kernel disagrees with plain on the "
+                                 f"{name} batch: {err}")
+        ms = time_ms(pack_launch(args), REPS)
+        res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     **bound(pack_bytes(pages, ncmds), 0)}
+        info = pack_cuda(pages, in_sizes, ins, cpy, dist, ncmds, page,
+                         max_cmds, flags, return_info=True)[2]
+        clocks = info[:, INFO_CLOCKS:INFO_CLOCKS + len(PHASES)].double()
+        per_page = clocks.sum(1)
+        slow = int(per_page.argmax())
+        raw = int((got[1] >= in_sizes.to(torch.int64)).sum())
+        print(f"[smoke] pack kernel == plain (tolerance 0, bytes and sizes) "
+              f"on the {name} batch ({pages.shape[0]} pages, "
+              f"{int(ncmds.sum())} commands, {raw} stored raw); kernel "
+              f"{ms:.4f} ms (mean of {REPS} raw launches, "
+              f"{ms / pages.shape[0]:.4f} ms a page), plain {plain_ms:.1f} "
+              f"ms (one run on the card), bound {res[name]['bound_ms']:.5f} "
+              f"ms by bytes [{gpu}]", flush=True)
+        print(f"[smoke] pack kernel phases on the {name} batch (thread 0's "
+              f"clock, kcycles a page: mean over the pages / the slowest "
+              f"page, row {slow}, {per_page[slow] / 1e3:.1f} kcycles in "
+              f"all): " + "; ".join(
+                  f"{ph} {clocks[:, k].mean() / 1e3:.1f} / "
+                  f"{clocks[slow, k] / 1e3:.1f}"
+                  for k, ph in enumerate(PHASES)) + f" [{gpu}]", flush=True)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1378,7 +1554,8 @@ def q11_steps(arr, sizes, dev, iters: int):
     around the backtracks, which copy to the host, and around the whole):
     the stage breakdown only, printed beside the entry point's own total
     so that a gap between the two shows. Returns (blobs, ms by stage, the
-    first iteration's DP inputs)."""
+    first iteration's DP inputs, the two packs' arguments: greedy and
+    DP)."""
     import numpy as np
     import torch
     from brotlig_tpu_torch.ops import parse_dp
@@ -1444,7 +1621,9 @@ def q11_steps(arr, sizes, dev, iters: int):
     ms.update(host)
     ms["host"] = total - sum(ms.values())
     ms["total"] = total
-    return blobs, ms, first
+    packs = {"greedy": (pages, in_sizes, PAGE, max_cmds, *greedy, flags),
+             "DP": (pages, in_sizes, PAGE, max_cmds, *cmds, flags)}
+    return blobs, ms, first, packs
 
 
 # the DP kernel's first design (one thread block a page, every block 16
@@ -1534,7 +1713,8 @@ def q11_phase(data: bytes, dev, gpu, tex_dp) -> dict:
     finally:
         parse_dp.dp_parse_plain = plain
     launches = counts["dp_parse"]
-    want = {**dict.fromkeys(counts, 0), "dp_parse": iters * nruns}
+    want = {**dict.fromkeys(counts, 0), "dp_parse": iters * nruns,
+            "pack": 2 * nruns}
     if counts != want or plain_calls:
         raise AssertionError(f"q11: encode_pages_device launched {counts} "
                              f"(want {want}) and {len(plain_calls)} plain "
@@ -1562,6 +1742,14 @@ def q11_phase(data: bytes, dev, gpu, tex_dp) -> dict:
           f"{peak / 2**20:.1f} MiB allocated; DP kernel launches {launches} "
           f"({iters} x {nruns} runs), plain dp_parse calls 0 [{gpu}]",
           flush=True)
+    print(f"[smoke] full-device q11 beside the eager serializer's run "
+          f"(NVIDIA H100 80GB HBM3, 700.00 W): entry point {total:.3f} ms "
+          f"(eager: {EAGER['q11 entry']}); greedy pack "
+          f"{med['greedy pack']:.3f} ms (eager: {EAGER['q11 greedy pack']}), "
+          f"DP pack {med['DP pack']:.3f} ms (eager: {EAGER['q11 DP pack']}), "
+          f"stage total {med['total']:.3f} ms (eager: {EAGER['q11 total']}); "
+          f"pack kernel launches {counts['pack']} ({nruns} runs x 2 packs) "
+          f"[{gpu}]", flush=True)
     print(f"[smoke] full-device q11 stage breakdown (chip_smoke's copy of "
           f"encode_pages_device's steps, CUDA events per device stage), "
           f"median of {ENC_REPS} runs (ms): "
@@ -1647,7 +1835,8 @@ def q11_phase(data: bytes, dev, gpu, tex_dp) -> dict:
     return {"launches": decode_on_card(container_of(blobs, PAGE),
                                        arr.tobytes(),
                                        "full-device q11 container"),
-            "dp": {**k_dp, "launches": launches}}
+            "dp": {**k_dp, "launches": launches}, "packs": counts["pack"],
+            "pack_in": runs[0][3]}
 
 
 def main() -> int:
@@ -1845,7 +2034,7 @@ def main() -> int:
           f"run equal to the input; launches {counts} (once a batch: "
           f"{nb})", flush=True)
     if counts != {"tables": nb, "decode": nb, "phase_a": 0, "sweep": 0,
-                  "dp_parse": 0}:
+                  "dp_parse": 0, "pack": 0}:
         raise AssertionError("the repeated decodes did not launch their "
                              "kernels once a batch")
     pipeline_never_syncs(blob64, dev)
@@ -1873,7 +2062,7 @@ def main() -> int:
             raise AssertionError(f"pooled decode {r} differs from the "
                                  "inputs")
         if pool != {"tables": nb, "decode": nb, "phase_a": 0, "sweep": 0,
-                    "dp_parse": 0}:
+                    "dp_parse": 0, "pack": 0}:
             raise AssertionError(f"pooled decode launched {pool}, want "
                                  f"{nb} batches")
     torch.cuda.synchronize()
@@ -1986,13 +2175,26 @@ def main() -> int:
     hyb = hybrid_phase(data16, blob16, gpu)
     name = tex_names[0]
     tex, _, params, _ = texs[name]
-    tex_launches, tex_dp = texture_encode_phase(name, tex, params, gpu)
+    tex_launches, tex_dp, tex_packs = texture_encode_phase(name, tex,
+                                                           params, gpu)
     cli_phase(data16[:1 << 20], gpu)
     t1 = time.perf_counter()
     q11 = q11_phase(data16, dev, gpu, tex_dp)
     del tex_dp
     print(f"[smoke] q11 phase {time.perf_counter() - t1:.1f} s [{gpu}]",
           flush=True)
+    t1 = time.perf_counter()
+    k_pack = pack_phase({"q1": enc.pop("pack_in"),
+                         "q11 greedy": q11["pack_in"]["greedy"],
+                         "q11 DP": q11.pop("pack_in")["DP"],
+                         "texture q1": tex_packs["q1"],
+                         "texture q11 DP": tex_packs["q11"]}, gpu)
+    pack_launches = enc["packs"] + q11["packs"] + tex_packs["launches"]
+    print(f"[smoke] pack phase {time.perf_counter() - t1:.1f} s; pack "
+          f"kernel launches on the encode main paths {pack_launches} "
+          f"(q1 {enc['packs']}, q11 {q11['packs']}, texture "
+          f"{tex_packs['launches']}) [{gpu}]", flush=True)
+    del tex_packs
     for got in [enc["launches"], hyb["launches"], q11["launches"]] \
             + tex_launches:
         for k in fused:
@@ -2018,7 +2220,10 @@ def main() -> int:
          "launches": by_cw[cw], **k5[cw]}
         for cw in SWEEP_CWS] + [
         {"name": "dp_parse", "route": "cuda", "source": src + "dp_parse.cu",
-         "replaces": "brotlig_tpu/ops/parse_dp.py:234", **q11["dp"]}]
+         "replaces": "brotlig_tpu/ops/parse_dp.py:234", **q11["dp"]},
+        {"name": "pack", "route": "cuda", "source": src + "pack.cu",
+         "replaces": "brotlig_tpu/ops/encode_pack.py:985",
+         "launches": pack_launches, **k_pack["q1"]}]
     print(f"[smoke] whole run {time.perf_counter() - t_start:.1f} s, "
           "builds included", flush=True)
     print(json.dumps({"kernels": kernels}))

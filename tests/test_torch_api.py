@@ -17,6 +17,7 @@ from brotlig_tpu.format.headers import parse_container
 from brotlig_tpu.format.precondition import DataConditionParams
 from brotlig_tpu.refimpl.codec import encode
 from test_roundtrip import make_data
+from test_torch_two_phase import torch_one_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

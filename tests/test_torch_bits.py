@@ -13,6 +13,7 @@ from brotlig_tpu.ops import arith_lut as jax_lut
 from brotlig_tpu.ops import bits as jax_bits
 
 from brotlig_tpu_torch.ops import arith_lut, bits
+from test_torch_two_phase import torch_one_thread  # noqa: F401 (autouse)
 
 
 def _t(x):

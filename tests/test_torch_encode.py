@@ -216,12 +216,19 @@ def test_hybrid_stream_matches_jax():
     assert native.decode(got) == data
 
 
-def test_full_stream_matches_jax():
+def test_full_stream_matches_jax(monkeypatch):
     data = _full_stream()
-    arr, sizes = _batch([data[i:i + S] for i in range(0, len(data), S)])
-    nc = _torch_find(arr, sizes, FAST_CMDS, True)[3]
-    assert len(arr) == 9 and max(nc) + 2 <= BUCKET
-    want = JP.encode_stream_tpu_full(data, page_size=S, quality=1)
+    packed = []
+
+    def pack(*args):
+        packed.append(args[7])                  # ncmds of the batch
+        return pack_partitioned(*args)
+    pack_partitioned = TP.pack_partitioned
+    monkeypatch.setattr(TP, "pack_partitioned", pack)
     got = TP.encode_stream_full(data, page_size=S, quality=1, device="cpu")
+    # nine pages, all within the 2048 bucket (one JAX executable)
+    assert len(packed) == 1 and len(packed[0]) == 9
+    assert int(packed[0].max()) + 2 <= BUCKET
+    want = JP.encode_stream_tpu_full(data, page_size=S, quality=1)
     assert got == want
     assert native.decode(got) == data

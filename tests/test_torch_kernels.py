@@ -13,8 +13,9 @@ import torch
 from brotlig_tpu_torch import _kernels, decode, native, state
 from brotlig_tpu_torch.format.headers import parse_container
 from brotlig_tpu_torch.ops import decode as decode_mod
-from brotlig_tpu_torch.ops import (decode_kernel, phase_a_kernel,
-                                   sweep_kernel, tables_kernel)
+from brotlig_tpu_torch.ops import (decode_kernel, encode_pack,
+                                   pack_kernel, phase_a_kernel, sweep_kernel,
+                                   tables_kernel)
 from brotlig_tpu_torch.ops.decode import VALID_SWEEP_CW, staged_batches
 from brotlig_tpu_torch.state import Staged, tables_from_lengths
 from test_roundtrip import make_data
@@ -247,7 +248,7 @@ def test_decode_stream_two_phase_cuda(cuda_dev, cw, monkeypatch):
     assert decode(blob, device="cuda", variant="two_phase",
                   sweep_cw=cw) == data
     assert _kernels.LAUNCHES == {"tables": 1, "decode": 0, "phase_a": 1,
-                                 "sweep": 1, "dp_parse": 0}
+                                 "sweep": 1, "dp_parse": 0, "pack": 0}
     assert _kernels.SWEEP_LAUNCHES[cw] == 1
 
 
@@ -420,6 +421,9 @@ def test_encode_on_card_decodes_on_card(cuda_dev, backend, quality,
     blob = encode(data, backend=backend, quality=quality, device="cuda")
     assert _kernels.LAUNCHES["dp_parse"] == (quality >= 10 and
                                              backend == "full")
+    # the serializer kernel once a batch a parse (greedy, and the DP's)
+    assert _kernels.LAUNCHES["pack"] == (0 if backend == "hybrid" else
+                                         1 + (quality >= 10))
     assert blob == encode(data, backend=backend, quality=quality,
                           device="cpu")
     for variant, kernels in (("fused", ("tables", "decode")),
@@ -705,6 +709,14 @@ def test_every_wrapper_launches_on_its_tensors_device(cuda_dev):
             torch.cuda.synchronize(dev1)
             assert torch.equal(got, parse_dp.dp_parse_plain(*ins, 32, 256,
                                                             2))
+            *ops, S, bound = pack_case("encode_rows", dev1)
+            got = encode_pack.pack_partitioned(ops[0], ops[1], S, bound,
+                                               *ops[2:])
+            want = encode_pack.pack_partitioned_plain(ops[0], ops[1], S,
+                                                      bound, *ops[2:])
+            torch.cuda.synchronize(dev1)
+            assert got[0].device == dev1
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
         except BaseException as e:      # re-raised in the test's thread
             errors.append(e)
     t = threading.Thread(target=run)
@@ -713,3 +725,77 @@ def test_every_wrapper_launches_on_its_tensors_device(cuda_dev):
     assert not t.is_alive()
     if errors:
         raise errors[0]
+
+
+# ---- the serializer kernel (csrc/pack.cu) against its plain version ----
+
+def pack_case(case: str, dev):
+    """A serializer batch on `dev`: (pages, in_sizes, ins, cpy, dist,
+    ncmds, isdelta, page size, command bound). "mixed" and "edge" are
+    tests/test_torch_pack.py's batches (several buckets, the overflow page;
+    the edge pages), "encode_rows" tests/test_torch_encode.py's serializer
+    rows at the 2048 bucket, "corpus_64k" and "corpus_128k" 16 corpus
+    pages of 64 KiB and 4 of 128 KiB (the last one partial) with the fast
+    tier's commands."""
+    import test_torch_pack as TPK
+    from brotlig_tpu_torch.ops.encode import find_commands
+    from brotlig_tpu_torch.utils.corpus import corpus
+    if case == "mixed":
+        ops, S, bound = TPK.mixed_batch(), TPK.S, TPK.WIDE_CMDS
+    elif case == "edge":
+        ops, S, bound = TPK.edge_batch()[1:], TPK.S, TPK.WIDE_CMDS
+    elif case == "encode_rows":
+        ops, S, bound = (TPK.encode_test_rows(), TPK.S,
+                         encode_pack.BUCKET_MIN)
+    else:
+        S, n = (65536, 16) if case == "corpus_64k" else (131072, 4)
+        bound = S // 4 + 16
+        arr = np.frombuffer(corpus(n, page=S), np.uint8).reshape(n, S).copy()
+        sizes = np.full(n, S, np.int64)
+        sizes[-1] -= S // 3
+        arr[-1, sizes[-1]:] = 0
+        cmds = find_commands(torch.from_numpy(arr), torch.from_numpy(sizes),
+                             bound, fast=True)
+        ops = (arr, sizes, *(c.numpy() for c in cmds), np.arange(n) % 2)
+    return [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            for x in ops] + [S, bound]
+
+
+@pytest.mark.parametrize("case", ["mixed", "edge", "encode_rows",
+                                  "corpus_64k", "corpus_128k"])
+def test_pack_kernel_matches_plain(cuda_dev, case):
+    """pack_partitioned and pack_pages_device launch the kernel once for
+    the whole batch, and their bytes and sizes equal the plain version's
+    on the card and on the CPU (tolerance 0)."""
+    pages, sizes, ins, cpy, dist, ncmds, isdelta, S, bound = pack_case(
+        case, cuda_dev)
+    _kernels.reset_launches()
+    got = encode_pack.pack_partitioned(pages, sizes, S, bound, ins, cpy,
+                                       dist, ncmds, isdelta)
+    one = encode_pack.pack_pages_device(pages, sizes, ins, cpy, dist, ncmds,
+                                        S, bound, isdelta)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["pack"] == 2
+    want = encode_pack.pack_partitioned_plain(pages, sizes, S, bound, ins,
+                                              cpy, dist, ncmds, isdelta)
+    cpu = encode_pack.pack_partitioned_plain(
+        *[x.cpu() for x in (pages, sizes)], S, bound,
+        *[x.cpu() for x in (ins, cpy, dist, ncmds, isdelta)])
+    for out in (got, one, cpu):
+        assert out[1].dtype == torch.int64
+        assert torch.equal(out[1].cpu(), want[1].cpu())
+        assert torch.equal(out[0].cpu(), want[0].cpu())
+
+
+def test_pack_kernel_refuses_bad_shapes(cuda_dev):
+    pages, sizes, ins, cpy, dist, ncmds, isdelta, S, bound = pack_case(
+        "encode_rows", cuda_dev)
+    with pytest.raises(ValueError):
+        pack_kernel.pack_cuda(pages[:, :S // 2], sizes, ins, cpy, dist,
+                              ncmds, S, bound)
+    with pytest.raises(ValueError):
+        pack_kernel.pack_cuda(pages, sizes, ins[:, :0], cpy[:, :0],
+                              dist[:, :0], ncmds, S, bound)
+    with pytest.raises(ValueError):
+        pack_kernel.pack_cuda(pages, sizes[:3], ins, cpy, dist, ncmds, S,
+                              bound)

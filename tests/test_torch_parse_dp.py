@@ -86,21 +86,32 @@ def t(x):
     return torch.from_numpy(np.array(x))
 
 
+@pytest.fixture(scope="module")
+def port_cand(ref):
+    """The port's find_candidates on the pages, once for every row."""
+    return TE.find_candidates(t(ref["arr"]), t(ref["sizes"]), W)
+
+
+@pytest.fixture(scope="module")
+def port_model(ref):
+    """The port's cost model on the JAX module's inputs, once for every
+    output."""
+    return TD.build_cost_model(t(ref["arr"]), t(ref["sizes"]),
+                               *map(t, ref["greedy"]), *map(t, ref["cand"]))
+
+
 @pytest.mark.parametrize("row", range(len(KINDS)))
-def test_find_candidates_matches_jax(ref, row):
-    got = TE.find_candidates(t(ref["arr"]), t(ref["sizes"]), W)
-    for g, w in zip(got, ref["cand"]):
+def test_find_candidates_matches_jax(ref, port_cand, row):
+    for g, w in zip(port_cand, ref["cand"]):
         assert g.dtype == torch.int32
         np.testing.assert_array_equal(g[row].numpy(), w[row])
 
 
 @pytest.mark.parametrize("name", MODEL)
-def test_build_cost_model_matches_jax(ref, name):
-    got = TD.build_cost_model(t(ref["arr"]), t(ref["sizes"]),
-                              *map(t, ref["greedy"]), *map(t, ref["cand"]))
+def test_build_cost_model_matches_jax(ref, port_model, name):
     i = MODEL.index(name)
-    assert got[i].dtype == torch.int32
-    np.testing.assert_array_equal(got[i].numpy(), ref["model"][i])
+    assert port_model[i].dtype == torch.int32
+    np.testing.assert_array_equal(port_model[i].numpy(), ref["model"][i])
 
 
 def test_dp_parse_plain_matches_jax(ref):

@@ -15,6 +15,7 @@ from brotlig_tpu_torch.ops.ring import INITIAL_RING, resolve_rounds
 from brotlig_tpu_torch.ops.tables_kernel import NBS, load_tables_plain
 from brotlig_tpu_torch.state import tables_from_lengths
 from test_torch_two_phase import edge_case, mixed_pages, stage
+from test_torch_two_phase import torch_one_thread  # noqa: F401 (autouse)
 
 PS = 32768
 
