@@ -141,7 +141,8 @@ def library():
         lib.blg_pack_pages.restype = i32
         lib.blg_pack_pages.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32, i32,
                                        i32, i32, i32, vp, vp, vp, vp]
-        for fn in (lib.blg_pack_scratch_ints, lib.blg_pack_info_offset):
+        for fn in (lib.blg_pack_scratch_ints, lib.blg_pack_info_offset,
+                   lib.blg_pack_smem):
             fn.restype = ctypes.c_longlong
             fn.argtypes = [i32, i32, i32]
         _lib = lib

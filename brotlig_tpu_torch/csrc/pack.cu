@@ -19,27 +19,52 @@
 // page's final round emit nothing), so one launch covers a whole batch,
 // where the plain version runs once a command bucket.
 //
-// What bounds it on this card: the serial parts of a page are chains a
-// block runs alone; the bytes it moves (a page, its commands, the output)
-// take microseconds. A batch of P pages occupies P of the 132 SMs. The
-// per-page record's clock stamps (chip_smoke.py prints them) put most of
-// a 64 KiB page's chain in the bit packing (one warp), the bitonic sort of
-// the distances and the 16 grid points. The design keeps each step simple:
-//   * per-command work (ring, fields, histograms) is spread over the
-//     block's threads in contiguous chunks, with block scans for the
-//     prefix sums (command starts, ring pushes, literal ranks);
-//   * the histograms, code lengths and codes live in shared memory; the
-//     stable orders of the plain version (count-descending ranks, the
-//     sorted distances of the grid search) are a rank count and a bitonic
-//     sort written here;
-//   * lane s of warp 0 owns sub-stream s, the format's own round robin: it
-//     appends its slots in order (table block, then each round's five
-//     command fields and its literals) through a 64-bit accumulator into
-//     its words, which live in device memory (Wst words a stream);
+// What bounds it on this card: a page is a chain of block-wide steps that
+// one block runs alone; the bytes it moves (a page, its commands, the
+// output) take microseconds. A batch of P pages occupies P of the 132 SMs,
+// and a launch lasts as long as its slowest page. The design shortens that
+// chain by giving every step to all 16 warps and keeping its data in
+// shared memory (the per-page record's clock stamps, which chip_smoke.py
+// prints, time each phase):
+//   * per-command work reads coalesced: the scans (command starts, ring
+//     pushes) run over tiles of 4 commands a thread with a block scan a
+//     tile, the other passes take command tid + 512 k;
+//   * histograms count through warp_count: equal values of a warp's lanes
+//     add once (atomics of many lanes on one shared address serialise,
+//     and a page's hot bins made them the longest step); the literal
+//     histogram is counted from the literal queue, a sub-histogram a
+//     warp, merged once;
+//   * the literals are found through a bitmap of the page's positions in
+//     shared memory, each command marking its insert region: a thread
+//     that walked the commands over its own bytes would wait on dependent
+//     loads in divergent loops;
+//   * the grid search's distances are sorted in shared memory (bitonic;
+//     the steps whose partners lie within 64 keys run in registers inside
+//     a warp), and warp g prices grid point g in one pass over the sorted
+//     keys, four a lane, with the run terms of lengths up to 512 in a
+//     table;
+//   * the bit packing follows the plain version's own scheme: a slot's
+//     bit offset is a prefix sum of the widths before it in its stream.
+//     The streams' slots are cut into items, a round's five command fields
+//     or a row of 32 literal-queue positions (literal j goes to sub-stream
+//     j & 31), and each warp takes a contiguous share of the items, lane s
+//     stream s. Pass A sums the widths of each share; a scan over the
+//     shares gives every share's offset and the 32 stream totals; the
+//     header and size table, which need only those totals, come next; pass
+//     B ORs each slot into a page image in shared memory at its stream's
+//     byte offset, and one coalesced copy writes the image out;
 //   * costs are fixed point as in the plain version: each run's float64
 //     term c * (log2 n - log2 c) + 6 is computed with the same libdevice
 //     log2 and with rounded (non-fused) double operations, then rounded
 //     half to even, so the sums equal the plain version's on the card.
+// Two size cases keep device memory, inside the same kernel: a page with
+// more commands than the shared region holds grid-search keys for sorts
+// its keys in its scratch; a page whose streams pass their Wst words (or whose padding
+// reaches past the last stream's words) is written into per-stream words
+// in its scratch and assembled byte by byte, as the plain version does,
+// since its bytes past a stream's Wst words are the next stream's first
+// words. The literal queue lives in shared memory when it fits beside the
+// image (pages up to 64 KiB), else in the scratch.
 //
 // Inputs (int32 unless noted): pages uint8 [P, S] (S == page_size),
 // in_sizes [P], ins/cpy/dist [P, N] (zero past ncmds), ncmds [P], isdelta
@@ -59,7 +84,7 @@ namespace blg_pack {
 namespace {
 
 constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
+constexpr int kWarps = kThreads / 32;  // also the grid search's 16 points
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kNbs = 32;
 constexpr int kACmd = 728;
@@ -69,8 +94,15 @@ constexpr int kATot = kACmd + kADst + kALit;
 constexpr int kSentinel = 704;
 constexpr int kHW = 24;               // header words
 constexpr int kInfoInts = 64 + kATot;  // the per-page record (see below)
+constexpr int kInfoBranch = 11;       // its size cases taken (kBranch*)
 constexpr int kInfoClocks = 52;       // its clock cycles a phase
-constexpr int kPhases = 10;
+constexpr int kPhases = 11;
+constexpr int kTile = 4 * kThreads;   // commands a tile of the scans
+constexpr int kBranchWords = 1;       // streams in the scratch's words
+constexpr int kBranchKeys = 2;        // the sort in the scratch
+constexpr int kBranchLq = 4;          // the literal queue in shared memory
+constexpr int kSubHist = kWarps * kALit * 4;   // bytes of the literal
+                                               // sub-histograms
 constexpr int kFar = 1 << 28;         // grid-search distances at or past it
                                       // are left out, as in the plain sort
 
@@ -80,6 +112,10 @@ __constant__ int kGridNd[4] = {0, 3, 8, 15};
 
 __host__ __device__ inline long long up4(long long x) {
   return (x + 3) & ~3LL;
+}
+
+__host__ __device__ inline long long up16(long long x) {
+  return (x + 15) & ~15LL;
 }
 
 // Scratch offsets of one page, in int32 words.
@@ -102,12 +138,29 @@ struct Layout {
   }
 };
 
+// Bytes of dynamic shared memory ahead of the shared region: each round's
+// literal bound (Rarr), at most (N + 1) / 32 + 1 rounds.
+__host__ __device__ inline long long rarr_bytes(int N) {
+  return up16(8LL * ((N + 1) / kNbs + 1));
+}
+
+// The shared region's first part: the page image, or before it the
+// literal sub-histograms and the bitmap of literal positions. The literal
+// queue follows it when it fits.
+__host__ __device__ inline long long image_bytes(int page_size) {
+  const long long img = up16(page_size);
+  const long long lit = kSubHist + up16((page_size + 7) / 8);
+  return img > lit ? img : lit;
+}
+
 struct Smem {
   int hist[kATot];       // cmd | dst | lit
   int lens[kATot];
   unsigned code[kATot];  // canonical codes, bit-reversed
   int dh[2][kADst];      // ring-mode histograms
   int srt[kACmd];        // used symbols by count rank
+  int ukey[kACmd];       // the used symbols' rank keys
+  int nused;
   unsigned char items[kATot];
   short runs[kATot];
   int clh[3][18], cll[3][18];
@@ -115,10 +168,16 @@ struct Smem {
   int mode[3], cnt[3], tsel[3], emit[3][4], M[3];
   int s4[4], sym4[3][4], len4[3][4];   // a simple table's symbols
   long long red[kWarps];
+  long long grid[kWarps];              // each grid point's cost
+  long long runc[kThreads];            // grid run terms, lengths 1..512
+  int nkeys;                           // grid-search keys gathered
+  long long share[kWarps][kNbs];       // bits of each warp's share of a
+                                       // stream, then its bit offset
   long long bits[kNbs];
   long long sbp[kNbs + 1];
   unsigned hw[kHW];
   long long hdr_bytes, pay_end;
+  int spill;                           // streams go to the scratch's words
   int next[3][16];
 };
 
@@ -137,6 +196,14 @@ __device__ T warp_incl_scan(T v) {
     if (lane >= o) v += y;
   }
   return v;
+}
+
+// Adds one to h[v] for each lane whose v is not negative; every lane of
+// the warp calls it. Lanes with equal v add together, one atomic for
+// each value: atomics of many lanes on one shared address serialise.
+__device__ __forceinline__ void warp_count(int* h, int v) {
+  const unsigned m = __match_any_sync(kFull, v);
+  if (v >= 0 && lane_id() == __ffs(m) - 1) atomicAdd(h + v, __popc(m));
 }
 
 // Exclusive prefix sum over the block's threads in thread order.
@@ -178,25 +245,6 @@ __device__ int block_max(int v, long long* red) {
   for (int i = 0; i < kWarps; ++i) t = max(t, r[i]);
   __syncthreads();
   return t;
-}
-
-// The least v over the threads after this one (INT_MAX for the last).
-__device__ int block_next_min(int v, long long* red) {
-  int* r = reinterpret_cast<int*>(red);
-  const int lane = lane_id();
-  int x = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_down_sync(kFull, x, o);
-    if (lane + o < 32) x = min(x, y);
-  }
-  int in_warp = __shfl_down_sync(kFull, x, 1);
-  if (lane == 31) in_warp = INT_MAX;
-  if (lane == 0) r[warp_id()] = x;
-  __syncthreads();
-  int after = INT_MAX;
-  for (int i = warp_id() + 1; i < kWarps; ++i) after = min(after, r[i]);
-  __syncthreads();
-  return min(in_warp, after);
 }
 
 // ---- RFC 7932 length codes (ops/encode_pack.py, ops/arith_lut.py) ----
@@ -292,6 +340,21 @@ __device__ __forceinline__ int dist_sym(long long d, int np, int nd,
   return s;
 }
 
+// dist_sym for a grid-search key (1 <= d < kFar) in 32-bit arithmetic.
+__device__ __forceinline__ int key_sym(int d, int np, int nd, int* nb) {
+  if (d <= nd) {
+    *nb = 0;
+    return 16 + d - 1;
+  }
+  const unsigned dd = static_cast<unsigned>(d - nd - 1);
+  const unsigned h4 = (dd >> np) + 4u;
+  const int n = 30 - __clz(static_cast<int>(h4));
+  *nb = n;
+  return 16 + nd +
+         static_cast<int>(((2u * (n - 1) + ((h4 >> n) & 1u)) << np) |
+                          (dd & ((1u << np) - 1u)));
+}
+
 // One run's entropy term in 2^-16 bits: round(c * (log2 n - log2 c) + 6),
 // with the plain version's float64 operations one at a time (no fused
 // multiply-add) and its round half to even.
@@ -338,16 +401,27 @@ __device__ void build_lengths(const int* hist, int A, int total, int* lens,
     __syncthreads();
   }
   int slack = (1 << 15) - units;
-  // count-descending ranks of the used symbols, ties by symbol
-  for (int i = tid; i < A; i += kThreads) {
-    const int h = hist[i];
-    if (h <= 0) continue;
+  // count-descending ranks of the used symbols, ties by symbol: a used
+  // symbol's key, count << 10 | (1023 - symbol), is outranked by the
+  // larger keys alone, so the ranks are counted over the used symbols
+  if (tid == 0) sm.nused = 0;
+  __syncthreads();
+  const unsigned below = (1u << lane_id()) - 1u;
+  for (int i0 = 0; i0 < A; i0 += kThreads) {
+    const int i = i0 + tid;
+    const bool u = i < A && hist[i] > 0;
+    const unsigned m = __ballot_sync(kFull, u);
+    int at = 0;
+    if (lane_id() == 0 && m) at = atomicAdd(&sm.nused, __popc(m));
+    at = __shfl_sync(kFull, at, 0);
+    if (u) sm.ukey[at + __popc(m & below)] = hist[i] << 10 | (1023 - i);
+  }
+  __syncthreads();
+  for (int u = tid; u < count; u += kThreads) {
+    const int key = sm.ukey[u];
     int r = 0;
-    for (int j = 0; j < A; ++j) {
-      const int hj = hist[j];
-      r += (hj > h) || (hj == h && j < i);
-    }
-    sm.srt[r] = i;
+    for (int v = 0; v < count; ++v) r += sm.ukey[v] > key;
+    sm.srt[r] = 1023 - (key & 1023);
   }
   __syncthreads();
   const int per = (count + kThreads - 1) / kThreads;
@@ -385,7 +459,8 @@ __device__ void canonical_codes(const int* lens, int A, unsigned* code,
   const int lane = lane_id();
   if (lane < 16) next[lane] = 0;
   __syncwarp();
-  for (int i = lane; i < A; i += 32) atomicAdd(&next[lens[i]], 1);
+  for (int b = 0; b < A; b += 32)
+    warp_count(next, b + lane < A ? lens[b + lane] : -1);
   __syncwarp();
   if (lane == 0) {
     int first = 0, prev_count = 0;
@@ -578,33 +653,116 @@ __device__ int rle_items(const int* lens, int A, short* runs,
   return off;
 }
 
-// One sub-stream's bit writer: slots appended in order, LSB first.
-struct BitWriter {
-  unsigned* words;
-  int wst;
-  unsigned long long acc = 0;
-  int nacc = 0;
-  int w = 0;
-  long long bits = 0;
+template <typename T>
+__device__ T warp_sum(T v) {
+  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
 
+// Ascending bitonic sort of a[0, m), m a power of two; block-wide, a in
+// shared or device memory. The compare steps whose partners lie more than
+// 32 apart pass over the whole array with a block barrier each; the rest
+// of a merge (partners at most 32 apart) stays inside aligned blocks of
+// 64 keys, which each warp finishes in registers (lane l holds keys l and
+// l + 32 of a block; partners under 32 apart are a shuffle away). The
+// merges of up to 64 keys run that way in one pass.
+__device__ void bitonic_sort(int* a, int m) {
+  const int lane = lane_id();
+  // merges k0 to k1 on the warp's blocks, each from its step j = top (or
+  // k / 2 where top is 0) down to 1
+  auto in_warp = [&](int k0, int k1, int top) {
+    for (int b = warp_id() * 64; b < m; b += kWarps * 64) {
+      const int i0 = b + lane, i1 = i0 + 32;
+      int x0 = i0 < m ? a[i0] : INT_MAX, x1 = i1 < m ? a[i1] : INT_MAX;
+      for (int k = k0; k <= k1; k <<= 1) {
+        for (int j = top ? top : k >> 1; j > 0; j >>= 1) {
+          if (j == 32) {
+            if ((x0 > x1) == ((i0 & k) == 0)) {
+              const int x = x0;
+              x0 = x1;
+              x1 = x;
+            }
+          } else {
+            const int y0 = __shfl_xor_sync(kFull, x0, j);
+            const int y1 = __shfl_xor_sync(kFull, x1, j);
+            const bool low = (lane & j) == 0;
+            x0 = (((i0 & k) == 0) == low) ? min(x0, y0) : max(x0, y0);
+            x1 = (((i1 & k) == 0) == low) ? min(x1, y1) : max(x1, y1);
+          }
+        }
+      }
+      if (i0 < m) a[i0] = x0;
+      if (i1 < m) a[i1] = x1;
+    }
+  };
+  in_warp(2, min(m, 64), 0);
+  __syncthreads();
+  for (int k = 128; k <= m; k <<= 1) {
+    for (int jj = k >> 1; jj > 32; jj >>= 1) {
+      // four pairs a thread at a time: their loads first, then the stores
+      for (int p0 = threadIdx.x; p0 < m / 2; p0 += 4 * kThreads) {
+        int i[4], x[4], y[4];
+        for (int r = 0; r < 4; ++r) {
+          const int p = p0 + r * kThreads;
+          i[r] = ((p & ~(jj - 1)) << 1) | (p & (jj - 1));
+          if (p < m / 2) {
+            x[r] = a[i[r]];
+            y[r] = a[i[r] ^ jj];
+          }
+        }
+        for (int r = 0; r < 4; ++r)
+          if (p0 + r * kThreads < m / 2 &&
+              (x[r] > y[r]) == ((i[r] & k) == 0)) {
+            a[i[r]] = y[r];
+            a[i[r] ^ jj] = x[r];
+          }
+      }
+      __syncthreads();
+    }
+    in_warp(k, k, 32);
+    __syncthreads();
+  }
+}
+
+// Pass A's sink: a stream's bits.
+struct BitCount {
+  long long bits = 0;
+  __device__ void put(int nb, unsigned long long) {
+    if (nb > 0) bits += nb;
+  }
+};
+
+// Pass B's sink: a stream's slots, LSB first from bit `at` on, ORed into
+// 32-bit words (the page image in shared memory, or a stream's Wst words
+// in device memory); words at or past `limit` are dropped. A 64-bit
+// accumulator gathers the bits and writes each word once, with atomicOr:
+// the first and last words of a warp's share, and the words where two
+// streams meet, have two writers.
+struct BitOr {
+  unsigned* words;
+  long long limit, w;
+  unsigned long long acc = 0;
+  int nacc;
+  __device__ BitOr(unsigned* words_, long long limit_, long long at)
+      : words(words_), limit(limit_), w(at >> 5),
+        nacc(static_cast<int>(at & 31)) {}
   __device__ void put(int nb, unsigned long long v) {
     if (nb <= 0) return;
     acc |= v << nacc;
     nacc += nb;
-    bits += nb;
     if (nacc >= 32) {
-      if (w < wst) words[w] = static_cast<unsigned>(acc);
+      if (w < limit) atomicOr(words + w, static_cast<unsigned>(acc));
       ++w;
       acc >>= 32;
       nacc -= 32;
     }
   }
   __device__ void flush() {
-    if (nacc > 0 && w < wst) words[w] = static_cast<unsigned>(acc);
+    if (nacc > 0 && w < limit) atomicOr(words + w, static_cast<unsigned>(acc));
   }
 };
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     pack_kernel(const uint8_t* __restrict__ pages,
                 const int32_t* __restrict__ in_sizes,
                 const int32_t* __restrict__ ins_g,
@@ -612,12 +770,17 @@ __global__ void __launch_bounds__(kThreads)
                 const int32_t* __restrict__ dist_g,
                 const int32_t* __restrict__ ncmds_g,
                 const int32_t* __restrict__ isdelta_g, int S, int N,
-                int page_size, int max_cmds, uint8_t* __restrict__ out_g,
-                int32_t* __restrict__ out_sizes, int32_t* __restrict__ scr_g) {
+                int page_size, int max_cmds, int region, int lq_shared,
+                uint8_t* __restrict__ out_g, int32_t* __restrict__ out_sizes,
+                int32_t* __restrict__ scr_g) {
   __shared__ Smem sm;
-  extern __shared__ long long rarr[];   // Rarr of each used round
+  // Rarr of each used round, then the region (see blg_pack_pages)
+  extern __shared__ __align__(16) unsigned char dyn[];
+  long long* rarr = reinterpret_cast<long long*>(dyn);
+  unsigned char* reg = dyn + rarr_bytes(N);
   const int tid = threadIdx.x;
   const int lane = lane_id();
+  const int w = warp_id();
   const int page = blockIdx.x;
   const Layout lay(N, S, page_size);
   const int wst = lay.wst;
@@ -626,8 +789,6 @@ __global__ void __launch_bounds__(kThreads)
   int* pv = scr + lay.pv;
   int* ringc = scr + lay.ringc;
   int4* cmd4 = reinterpret_cast<int4*>(scr + lay.cmd4);
-  int* sortb = scr + lay.sortb;
-  uint8_t* lq = reinterpret_cast<uint8_t*>(scr + lay.lq);
   unsigned* words = reinterpret_cast<unsigned*>(scr + lay.words);
   int* info = scr + lay.info;
   const uint8_t* pg = pages + static_cast<size_t>(page) * S;
@@ -644,167 +805,222 @@ __global__ void __launch_bounds__(kThreads)
     if (tid == 0) stamp[k] = clock64();
   };
 
-  for (int i = tid; i < kNbs * wst; i += kThreads) words[i] = 0u;
   for (int i = tid; i < kATot; i += kThreads) sm.hist[i] = 0;
   for (int i = tid; i < 2 * kADst; i += kThreads) (&sm.dh[0][0])[i] = 0;
 
-  // ---- command starts over all N slots; the tail ----
-  const int cn = (N + kThreads - 1) / kThreads;
-  const int j0 = min(tid * cn, N), j1 = min(j0 + cn, N);
-  long long cov = 0;
-  for (int j = j0; j < j1; ++j)
-    cov += static_cast<long long>(ins[j]) + cpy[j];
-  long long covered;
-  long long st = block_excl_scan(cov, &covered, sm.red);
-  for (int j = j0; j < j1; ++j) {
-    starts[j] = static_cast<int>(st);
-    st += static_cast<long long>(ins[j]) + cpy[j];
+  if (tid == 0) sm.nkeys = 0;
+
+  // ---- command starts; the tail. In tiles of kTile commands, thread t
+  // the four from 4 t on: the loads coalesce, and a block scan a tile
+  // carries the sum ----
+  long long covered = 0;
+  for (int base = 0; base < n; base += kTile) {
+    const int j0 = base + 4 * tid;
+    long long len[4], sum = 0;
+    for (int q = 0; q < 4; ++q) {
+      const int j = j0 + q;
+      len[q] = j < n ? static_cast<long long>(ins[j]) + cpy[j] : 0;
+      sum += len[q];
+    }
+    long long tot;
+    long long st = covered + block_excl_scan(sum, &tot, sm.red);
+    for (int q = 0; q < 4; ++q) {
+      if (j0 + q < n) starts[j0 + q] = static_cast<int>(st);
+      st += len[q];
+    }
+    covered += tot;
   }
   const long long tail = insz - covered;
   const bool has_tail = tail > 0;
   const int ntotal = n + 1 + has_tail;
 
-  // ---- exact ring state before each command (_ring_before) ----
-  const int vn = (n + kThreads - 1) / kThreads;
-  const int a0 = min(tid * vn, n), a1 = min(a0 + vn, n);
+  // ---- exact ring state before each command (_ring_before), and the
+  // grid search's keys: the distances that are not exact ring hits ----
   auto is_copy = [&](int j) { return cpy[j] > 0 && dist[j] > 0; };
   auto ring0 = [&](int j) {
     return j == 0 ? 4 : (is_copy(j - 1) ? dist[j - 1] : 0);
   };
-  int pushes = 0;
-  for (int j = a0; j < a1; ++j)
-    pushes += is_copy(j) && dist[j] != ring0(j);
-  int npush;
-  const int pex = block_excl_scan(pushes, &npush, sm.red);
-  {
-    int t = pex;
-    for (int j = a0; j < a1; ++j) {
-      const int r0 = ring0(j);
-      if (is_copy(j) && dist[j] != r0) pv[t++] = r0;
-    }
-  }
-  __syncthreads();
   auto pvx = [&](int i) {
     return i == 0 ? 16 : i == 1 ? 15 : i == 2 ? 11 : pv[i - 3];
   };
-  int nkeys_local = 0;
-  {
-    int t = pex;
-    for (int j = a0; j < a1; ++j) {
-      const int r0 = ring0(j);
-      const bool copy = is_copy(j);
-      int rc = -1;
-      if (copy) {
-        const int d = dist[j];
-        const int r1 = pvx(2 + t), r2 = pvx(1 + t), r3 = pvx(t);
-        if (d == r0) rc = 0;
-        else if (d == r1) rc = 1;
-        else if (d == r2) rc = 2;
-        else if (d == r3) rc = 3;
-        else if (d == r0 - 1) rc = 4;
-        else if (d == r0 + 1) rc = 5;
-        else if (d == r0 - 2) rc = 6;
-        else if (d == r0 + 2) rc = 7;
-        else if (d == r0 - 3) rc = 8;
-        else if (d == r0 + 3) rc = 9;
-        else if (d == r1 - 1) rc = 10;
-        else if (d == r1 + 1) rc = 11;
-        else if (d == r1 - 2) rc = 12;
-        else if (d == r1 + 2) rc = 13;
-        else if (d == r1 - 3) rc = 14;
-        else if (d == r1 + 3) rc = 15;
-        if (dist[j] != r0) ++t;
-        nkeys_local += !(rc >= 0 && rc <= 3) && d < kFar;
-      }
-      ringc[j] = rc;
+  // a page whose commands could give more keys than the region holds
+  // sorts them in its scratch
+  long long m2max = 1;
+  while (m2max < n) m2max <<= 1;
+  const bool keys_shared = 4 * m2max <= region;
+  int* keys = keys_shared ? reinterpret_cast<int*>(reg) : scr + lay.sortb;
+  const unsigned below = (1u << lane) - 1u;
+  int pushed = 0;
+  for (int base = 0; base < n; base += kTile) {
+    const int j0 = base + 4 * tid;
+    int pushes = 0;
+    for (int q = 0; q < 4; ++q) {
+      const int j = j0 + q;
+      if (j < n) pushes += is_copy(j) && dist[j] != ring0(j);
     }
+    int tot;
+    const int pex = pushed + block_excl_scan(pushes, &tot, sm.red);
+    int t = pex;
+    for (int q = 0; q < 4; ++q) {
+      const int j = j0 + q;
+      if (j >= n) break;
+      const int r0 = ring0(j);
+      if (is_copy(j) && dist[j] != r0) pv[t++] = r0;
+    }
+    __syncthreads();
+    t = pex;
+    for (int q = 0; q < 4; ++q) {
+      const int j = j0 + q;
+      bool key = false;
+      int d = 0;
+      if (j < n) {
+        const int r0 = ring0(j);
+        int rc = -1;
+        d = dist[j];
+        if (is_copy(j)) {
+          const int r1 = pvx(2 + t), r2 = pvx(1 + t), r3 = pvx(t);
+          if (d == r0) rc = 0;
+          else if (d == r1) rc = 1;
+          else if (d == r2) rc = 2;
+          else if (d == r3) rc = 3;
+          else if (d == r0 - 1) rc = 4;
+          else if (d == r0 + 1) rc = 5;
+          else if (d == r0 - 2) rc = 6;
+          else if (d == r0 + 2) rc = 7;
+          else if (d == r0 - 3) rc = 8;
+          else if (d == r0 + 3) rc = 9;
+          else if (d == r1 - 1) rc = 10;
+          else if (d == r1 + 1) rc = 11;
+          else if (d == r1 - 2) rc = 12;
+          else if (d == r1 + 2) rc = 13;
+          else if (d == r1 - 3) rc = 14;
+          else if (d == r1 + 3) rc = 15;
+          if (d != r0) ++t;
+          key = !(rc >= 0 && rc <= 3) && d < kFar;
+        }
+        ringc[j] = rc;
+      }
+      // one slot reservation a warp; the keys' order does not matter
+      const unsigned m = __ballot_sync(kFull, key);
+      int at = 0;
+      if (lane == 0 && m) at = atomicAdd(&sm.nkeys, __popc(m));
+      at = __shfl_sync(kFull, at, 0);
+      if (key) keys[at + __popc(m & below)] = d;
+    }
+    pushed += tot;
   }
-
-  // ---- the (npostfix, ndirect) grid search: the sorted distances that
-  // are not exact ring hits, 16 grid points, the first minimum wins ----
-  int nkeys;
-  int kex = block_excl_scan(nkeys_local, &nkeys, sm.red);
-  mark(1);                                       // starts, ring codes
-  for (int j = a0; j < a1; ++j) {
-    const int rc = ringc[j];
-    if (is_copy(j) && !(rc >= 0 && rc <= 3) && dist[j] < kFar)
-      sortb[kex++] = dist[j];
-  }
-  int m2 = 1;
-  while (m2 < nkeys) m2 <<= 1;
-  for (int i = nkeys + tid; i < m2; i += kThreads) sortb[i] = INT_MAX;
   __syncthreads();
-  for (int k = 2; k <= m2; k <<= 1)
-    for (int jj = k >> 1; jj > 0; jj >>= 1) {
-      for (int i = tid; i < m2; i += kThreads) {
-        const int ixj = i ^ jj;
-        if (ixj > i) {
-          const int a = sortb[i], b = sortb[ixj];
-          if ((a > b) == ((i & k) == 0)) {
-            sortb[i] = b;
-            sortb[ixj] = a;
-          }
+
+  // ---- the (npostfix, ndirect) grid search: the sorted keys, 16 grid
+  // points, the first minimum wins ----
+  const int nkeys = sm.nkeys;
+  const double log2k = log2(static_cast<double>(max(nkeys, 1)));
+  sm.runc[tid] = run_cost(tid + 1, log2k);
+  mark(1);                                       // starts, ring codes
+  int m2 = 4;   // at least a lane's four keys of the grid search
+  while (m2 < nkeys) m2 <<= 1;
+  for (int i = nkeys + tid; i < m2; i += kThreads) keys[i] = INT_MAX;
+  __syncthreads();
+  bitonic_sort(keys, m2);
+  mark(2);                                       // the distance sort
+  {
+    // warp g prices grid point g: runs of equal symbols in sorted order
+    // that start on a symbol of the alphabet, each up to the next start.
+    // Lane l takes keys 4 l to 4 l + 3 of every 128.
+    auto run = [&](int c) {
+      return c <= kThreads ? sm.runc[c - 1] : run_cost(c, log2k);
+    };
+    const int gnp = w >> 2, gnd = kGridNd[w & 3] << gnp;
+    long long cost = 0, nbs = 0;
+    int open = -1;   // the last start before the chunk
+    for (int b = 0; b < nkeys; b += 128) {
+      const int i0 = b + 4 * lane;
+      int s[4] = {INT_MAX, INT_MAX, INT_MAX, INT_MAX};
+      if (i0 < nkeys) {
+        const int4 k4 = *reinterpret_cast<const int4*>(keys + i0);
+        const int kv[4] = {k4.x, k4.y, k4.z, k4.w};
+        for (int u = 0; u < 4; ++u) {
+          if (i0 + u >= nkeys) break;
+          int nb;
+          s[u] = key_sym(kv[u], gnp, gnd, &nb);
+          nbs += nb;
         }
       }
-      __syncthreads();
-    }
-  mark(2);                                       // the distance sort
-  const double log2k = log2(static_cast<double>(max(nkeys, 1)));
-  const int kc = (nkeys + kThreads - 1) / kThreads;
-  const int i0 = min(tid * kc, nkeys), i1 = min(i0 + kc, nkeys);
-  long long best_cost = LLONG_MAX;
-  int best = 0;
-  for (int g = 0; g < 16; ++g) {
-    const int gnp = g >> 2, gnd = kGridNd[g & 3] << gnp;
-    int first = INT_MAX, nb;
-    long long nbs = 0;
-    int prev = i0 > 0 ? dist_sym(sortb[i0 - 1], gnp, gnd, &nb) : -1;
-    for (int i = i0; i < i1; ++i) {
-      const int s = dist_sym(sortb[i], gnp, gnd, &nb);
-      nbs += nb;
-      if (first == INT_MAX && s < kADst && s != prev) first = i;
-      prev = s;
-    }
-    int nx = block_next_min(first, sm.red);
-    long long cost = 0;
-    for (int i = i1 - 1; i >= i0; --i) {
-      const int s = dist_sym(sortb[i], gnp, gnd, &nb);
-      const int sp = i > 0 ? dist_sym(sortb[i - 1], gnp, gnd, &nb) : -1;
-      if (s < kADst && s != sp) {
-        cost += run_cost(min(nx, nkeys) - i, log2k);
-        nx = i;
+      int prev = __shfl_up_sync(kFull, s[3], 1);
+      if (lane == 0) {
+        int nb;
+        prev = b > 0 ? key_sym(keys[b - 1], gnp, gnd, &nb) : -1;
       }
+      bool start[4];
+      int last = -1;
+      for (int u = 0; u < 4; ++u) {
+        start[u] = i0 + u < nkeys && s[u] < kADst && s[u] != prev;
+        if (start[u]) last = i0 + u;
+        prev = s[u];
+      }
+      // the last start at or before this lane's keys: a max scan
+      int upto = last;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, upto, o);
+        if (lane >= o) upto = max(upto, y);
+      }
+      int ps = __shfl_up_sync(kFull, upto, 1);
+      ps = max(lane ? ps : -1, open);
+      for (int u = 0; u < 4; ++u)
+        if (start[u]) {
+          if (ps >= 0) cost += run(i0 + u - ps);
+          ps = i0 + u;
+        }
+      open = max(open, __shfl_sync(kFull, upto, 31));
     }
-    cost = block_sum(cost, sm.red);
-    nbs = block_sum(nbs, sm.red);
-    const long long total = cost + (nbs << 16);
-    if (total < best_cost) {
-      best_cost = total;
-      best = g;
-    }
+    if (lane == 0 && open >= 0) cost += run(nkeys - open);
+    cost = warp_sum(cost);
+    nbs = warp_sum(nbs);
+    if (lane == 0) sm.grid[w] = cost + (nbs << 16);
   }
+  __syncthreads();
+  int best = 0;
+  for (int g = 1; g < kWarps; ++g)
+    if (sm.grid[g] < sm.grid[best]) best = g;
   mark(3);                                       // the 16 grid points
   const int npostfix = best >> 2;
   const int ndist = kGridNd[best & 3];
   const int ndirect = ndist << npostfix;
 
+  // the keys are done with: the region now holds the literal
+  // sub-histograms and bitmap (and the literal queue, where it fits)
+  int* subh = reinterpret_cast<int*>(reg);
+  for (int i = tid; i < kWarps * kALit; i += kThreads) subh[i] = 0;
+  uint8_t* lq = lq_shared ? reg + image_bytes(page_size)
+                          : reinterpret_cast<uint8_t*>(scr + lay.lq);
+
   // ---- ring mode: exact hits only vs the offset codes too ----
   int nm = 0, ge[2] = {0, 0};
   long long nbk[2] = {0, 0};
-  for (int j = a0; j < a1; ++j) {
-    const int rc = ringc[j];
-    if (!is_copy(j) || rc == 0) continue;
-    ++nm;
-    int dnb;
-    const int ds = dist_sym(max(dist[j], 1), npostfix, ndirect, &dnb);
-    const bool exact = rc >= 1 && rc <= 3;
-    const int s0 = exact ? rc : ds, s1 = rc >= 0 ? rc : ds;
-    nbk[0] += exact ? 0 : dnb;
-    nbk[1] += rc >= 0 ? 0 : dnb;
-    if (s0 < kADst) atomicAdd(&sm.dh[0][s0], 1);
-    else ++ge[0];
-    if (s1 < kADst) atomicAdd(&sm.dh[1][s1], 1);
-    else ++ge[1];
+  for (int j0 = 0; j0 < n; j0 += kThreads) {
+    const int j = j0 + tid;
+    int s0 = -1, s1 = -1;
+    if (j < n && is_copy(j) && ringc[j] != 0) {
+      const int rc = ringc[j];
+      ++nm;
+      int dnb;
+      const int ds = dist_sym(max(dist[j], 1), npostfix, ndirect, &dnb);
+      const bool exact = rc >= 1 && rc <= 3;
+      s0 = exact ? rc : ds;
+      s1 = rc >= 0 ? rc : ds;
+      nbk[0] += exact ? 0 : dnb;
+      nbk[1] += rc >= 0 ? 0 : dnb;
+      if (s0 >= kADst) {
+        ++ge[0];
+        s0 = -1;
+      }
+      if (s1 >= kADst) {
+        ++ge[1];
+        s1 = -1;
+      }
+    }
+    warp_count(sm.dh[0], s0);
+    warp_count(sm.dh[1], s1);
   }
   nm = block_sum(nm, sm.red);
   long long ring_cost[2];
@@ -826,27 +1042,33 @@ __global__ void __launch_bounds__(kThreads)
   const bool offset_codes = ring_cost[1] < ring_cost[0];
 
   // ---- per-command wire fields, command and distance histograms ----
-  for (int j = a0; j < a1; ++j) {
-    const int rc = ringc[j];
-    const int in = ins[j], cp = cpy[j];
-    const int sel = offset_codes ? rc : (rc >= 0 && rc <= 3 ? rc : -1);
-    int dsym = sel, dnb = 0;
-    long long dx = 0;
-    if (sel < 0) encode_distance(max(dist[j], 1), npostfix, ndirect, &dsym,
-                                 &dnb, &dx);
-    const int ic = ins_code(in), cc = cpy_code(cp);
-    const bool use_last = rc == 0 && ic < 8 && cc < 16;
-    const int prefix = combine_codes(ic, cc, use_last);
-    const bool sd = !use_last;
-    if (prefix >= 0 && prefix < kACmd) atomicAdd(&sm.hist[prefix], 1);
-    if (sd && dsym >= 0 && dsym < kADst)
-      atomicAdd(&sm.hist[kACmd + dsym], 1);
-    const int insx = in - insert_base(ic);
-    const int cpyx = cc > 1 ? cp - copy_base(cc) : cp;
-    cmd4[j] = make_int4(
-        prefix | ((sd ? dsym : 0) << 10) | (static_cast<int>(sd) << 20) |
-            (insert_extra(ic) << 21) | (copy_extra(cc) << 26),
-        sd ? static_cast<int>(dx) : 0, insx | ((sd ? dnb : 0) << 24), cpyx);
+  for (int j0 = 0; j0 < n; j0 += kThreads) {
+    const int j = j0 + tid;
+    int hc = -1, hd = -1;
+    if (j < n) {
+      const int rc = ringc[j];
+      const int in = ins[j], cp = cpy[j];
+      const int sel = offset_codes ? rc : (rc >= 0 && rc <= 3 ? rc : -1);
+      int dsym = sel, dnb = 0;
+      long long dx = 0;
+      if (sel < 0) encode_distance(max(dist[j], 1), npostfix, ndirect,
+                                   &dsym, &dnb, &dx);
+      const int ic = ins_code(in), cc = cpy_code(cp);
+      const bool use_last = rc == 0 && ic < 8 && cc < 16;
+      const int prefix = combine_codes(ic, cc, use_last);
+      const bool sd = !use_last;
+      if (prefix >= 0 && prefix < kACmd) hc = prefix;
+      if (sd && dsym >= 0 && dsym < kADst) hd = dsym;
+      const int insx = in - insert_base(ic);
+      const int cpyx = cc > 1 ? cp - copy_base(cc) : cp;
+      cmd4[j] = make_int4(
+          prefix | ((sd ? dsym : 0) << 10) | (static_cast<int>(sd) << 20) |
+              (insert_extra(ic) << 21) | (copy_extra(cc) << 26),
+          sd ? static_cast<int>(dx) : 0, insx | ((sd ? dnb : 0) << 24),
+          cpyx);
+    }
+    warp_count(sm.hist, hc);
+    warp_count(sm.hist + kACmd, hd);
   }
   const int tail_code = has_tail ? ins_code(static_cast<int>(tail)) : 0;
   if (tid == 0) {
@@ -854,43 +1076,77 @@ __global__ void __launch_bounds__(kThreads)
     atomicAdd(&sm.hist[kSentinel], 1);
   }
 
-  // ---- literal cover: the insert regions and the tail, in page order ----
-  const int pn = (S + kThreads - 1) / kThreads;
-  const int p0 = min(tid * pn, S), p1 = min(p0 + pn, S);
-  int c0 = 0;
-  if (n > 0) {
-    int lo = 0, hi = n - 1;   // last j < n with starts[j] <= p0
-    while (lo < hi) {
-      const int mid = (lo + hi + 1) >> 1;
-      if (starts[mid] <= p0) lo = mid;
-      else hi = mid - 1;
-    }
-    c0 = lo;
-  }
-  auto literal = [&](int p, int& c) {
-    while (c + 1 < n && starts[c + 1] <= p) ++c;
-    return (p < static_cast<long long>(starts[c]) + ins[c] || p >= covered) &&
-           p < insz;
+  // ---- literal cover: the insert regions and the tail, a bitmap of the
+  // page's positions in shared memory; then each thread's words of it,
+  // in page order, with their bytes read 16 at a time ----
+  unsigned* litmap = reinterpret_cast<unsigned*>(reg + kSubHist);
+  const int nwords = (S + 31) / 32;
+  const long long lim = min(insz, S);
+  auto bits_of = [](long long a, long long b) {   // bits a..b-1 of a word
+    const unsigned hi = b >= 32 ? kFull : (1u << b) - 1u;
+    return hi & ~((1u << a) - 1u);
   };
+  for (int i = tid; i < nwords; i += kThreads) {
+    const long long lo = 32LL * i;
+    const long long a = max(lo, covered), b = min(lo + 32, lim);
+    litmap[i] = a < b ? bits_of(a - lo, b - lo) : 0u;
+  }
+  __syncthreads();
+  for (int j = tid; j < n; j += kThreads) {
+    const long long a = starts[j], b = min(a + ins[j], lim);
+    for (long long lo = a & ~31LL; lo < b; lo += 32)
+      atomicOr(&litmap[lo >> 5],
+               bits_of(max(a, lo) - lo, min(b, lo + 32) - lo));
+  }
+  __syncthreads();
+  const int wpt = (nwords + kThreads - 1) / kThreads;
+  const int w0 = min(tid * wpt, nwords), w1 = min(w0 + wpt, nwords);
   int nlit_local = 0;
-  {
-    int c = c0;
-    for (int p = p0; p < p1; ++p)
-      if (literal(p, c)) {
-        ++nlit_local;
-        atomicAdd(&sm.hist[kACmd + kADst + pg[p]], 1);
-      }
-  }
+  for (int i = w0; i < w1; ++i) nlit_local += __popc(litmap[i]);
   int n_lits;
-  {
-    int q = block_excl_scan(nlit_local, &n_lits, sm.red);
-    int c = c0;
-    for (int p = p0; p < p1; ++p)
-      if (literal(p, c)) lq[q++] = pg[p];
+  int at = block_excl_scan(nlit_local, &n_lits, sm.red);   // its queue slot
+  for (int i = w0; i < w1; ++i) {
+    const unsigned bits = litmap[i];
+    if (!bits) continue;
+    const int p = 32 * i;
+    unsigned v[8];
+    if (p + 32 <= S && (S & 15) == 0) {
+      const uint4 x = *reinterpret_cast<const uint4*>(pg + p);
+      const uint4 y = *reinterpret_cast<const uint4*>(pg + p + 16);
+      v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+      v[4] = y.x; v[5] = y.y; v[6] = y.z; v[7] = y.w;
+    } else {
+      for (int k = 0; k < 8; ++k) {
+        v[k] = 0;
+        for (int e = 0; e < 4; ++e)
+          if (p + 4 * k + e < S) v[k] |= pg[p + 4 * k + e] << (8 * e);
+      }
+    }
+    for (int k = 0; k < 8; ++k) {
+      unsigned b4 = (bits >> (4 * k)) & 15u;
+      while (b4) {
+        lq[at++] = static_cast<uint8_t>(v[k] >> (8 * (__ffs(b4) - 1)));
+        b4 &= b4 - 1;
+      }
+    }
   }
+  __syncthreads();
+  {
+    // the literal histogram from the queue: warp w counts its share into
+    // its own sub-histogram, 32 literals a step
+    const int per_w = (n_lits + kWarps - 1) / kWarps;
+    const int l0 = w * per_w, l1 = min(l0 + per_w, n_lits);
+    for (int b = l0; b < l1; b += 32)
+      warp_count(subh + w * kALit, b + lane < l1 ? lq[b + lane] : -1);
+  }
+  __syncthreads();
   int mf = -1;
-  for (int v = tid; v < kALit; v += kThreads)
-    mf = max(mf, (sm.hist[kACmd + kADst + v] << 8) | (255 - v));
+  for (int v = tid; v < kALit; v += kThreads) {
+    int h = 0;
+    for (int k = 0; k < kWarps; ++k) h += subh[k * kALit + v];
+    sm.hist[kACmd + kADst + v] = h;
+    mf = max(mf, (h << 8) | (255 - v));
+  }
   const int most_freq = 255 - (block_max(mf, sm.red) & 255);
   mark(4);                   // ring mode, fields, histograms, literals
 
@@ -901,7 +1157,6 @@ __global__ void __launch_bounds__(kThreads)
   mark(5);                                       // code lengths
   const int tbase[3] = {0, kACmd, kACmd + kADst};
   const int talpha[3] = {kACmd, kADst, kALit};
-  const int w = warp_id();
   if (w < 3) {
     canonical_codes(sm.lens + tbase[w], talpha[w], sm.code + tbase[w],
                     sm.next[w]);
@@ -909,8 +1164,9 @@ __global__ void __launch_bounds__(kThreads)
                             sm.runs + tbase[w], sm.items + tbase[w]);
     if (lane < 18) sm.clh[w][lane] = 0;
     __syncwarp();
-    for (int j = lane; j < M; j += 32)
-      atomicAdd(&sm.clh[w][sm.items[tbase[w] + j] & 31], 1);
+    for (int b = 0; b < M; b += 32)
+      warp_count(sm.clh[w], b + lane < M ? sm.items[tbase[w] + b + lane] & 31
+                                         : -1);
     if (lane == 0) sm.M[w] = M;
   }
   __syncthreads();
@@ -960,13 +1216,37 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   for (int r = tid; r < nR - 1; r += kThreads)
     rarr[r] = (rarr[r] + 31) / 32 * 32;
+  // the literal sub-histograms and bitmap are done with: the image
+  // starts empty
+  unsigned* img = reinterpret_cast<unsigned*>(reg);
+  for (int i = tid; i < page_size / 4; i += kThreads) img[i] = 0u;
   __syncthreads();
-
   mark(7);                                       // round schedule
-  // ---- bit packing: lane s of warp 0 writes sub-stream s ----
-  if (w == 0) {
-    const int s = lane;
-    BitWriter bw{words + static_cast<size_t>(s) * wst, wst};
+
+  // ---- the streams' slots as items. Every round but the last ends on a
+  // multiple of 32 literals, so round r's literals j in [Rprev, Rarr[r])
+  // fall in rows of 32 and literal j goes to sub-stream j & 31. Item
+  // ic(r) = r + Rprev / 32 is round r's five command fields (slot
+  // 32 r + s of stream s), the items after it up to ic(r + 1) its rows.
+  // A stream's dynamic slot e (the cap edyn counts them) is 5 r + k +
+  // Rprev / 32 for command field k, 5 (r + 1) + j / 32 for literal j. ----
+  const long long edyn = 6LL * R + (page_size + 64) / 32 + 2;
+  const int* clen = sm.lens;
+  const unsigned* ccode = sm.code;
+  const int* dlen = sm.lens + kACmd;
+  const unsigned* dcode = sm.code + kACmd;
+  const int* llen = sm.lens + kACmd + kADst;
+  const unsigned* lcode = sm.code + kACmd + kADst;
+  auto ic = [&](int r) {
+    return r + static_cast<int>((r ? rarr[r - 1] : 0) >> 5);
+  };
+  const int n_items = nR + static_cast<int>((rarr[nR - 1] + 31) >> 5);
+  const int per = (n_items + kWarps - 1) / kWarps;
+  const int it0 = min(w * per, n_items), it1 = min(it0 + per, n_items);
+  const int s = lane;
+  // the table block: the three tables' header, code-length or symbol
+  // column and run-coded item columns, ahead of every stream's rounds
+  auto table_block = [&](auto& out) {
     for (int T = 0; T < 3; ++T) {
       const int A = talpha[T];
       const int maxb = A == kALit ? 8 : 10;
@@ -981,10 +1261,10 @@ __global__ void __launch_bounds__(kThreads)
                    (static_cast<unsigned long long>(sm.tsel[T]) << 4) |
                    (e0 << 6))
                 : (2ull | (14ull << 2));
-        bw.put(mode == 2 ? 6 : 6 + maxb, hv);
+        out.put(mode == 2 ? 6 : 6 + maxb, hv);
       }
-      if (mode == 2 && s < 18) bw.put(5, sm.cll[T][kClOrder[s]]);
-      if (mode == 1 && s >= 1 && s < sm.cnt[T]) bw.put(maxb, sm.emit[T][s]);
+      if (mode == 2 && s < 18) out.put(5, sm.cll[T][kClOrder[s]]);
+      if (mode == 1 && s >= 1 && s < sm.cnt[T]) out.put(maxb, sm.emit[T][s]);
       if (mode == 2) {
         const int M = sm.M[T];
         const unsigned char* it = sm.items + tbase[T];
@@ -992,83 +1272,112 @@ __global__ void __launch_bounds__(kThreads)
           const int code = it[j] & 31, extra = it[j] >> 5;
           const int cl = sm.cll[T][code];
           const int width = code == 16 ? 2 : code == 17 ? 3 : 0;
-          bw.put(cl + width,
-                 sm.clc[T][code] |
-                     (static_cast<unsigned long long>(extra) << cl));
+          out.put(cl + width,
+                  sm.clc[T][code] |
+                      (static_cast<unsigned long long>(extra) << cl));
         }
       }
     }
-    const long long edyn = 6LL * R + (page_size + 64) / 32 + 2;
-    const int* clen = sm.lens;
-    const unsigned* ccode = sm.code;
-    const int* dlen = sm.lens + kACmd;
-    const unsigned* dcode = sm.code + kACmd;
-    const int* llen = sm.lens + kACmd + kADst;
-    const unsigned* lcode = sm.code + kACmd + kADst;
-    long long e = 0, rprev = 0;
-    for (int r = 0; r < nR && e < edyn; ++r) {
-      const int t = r * kNbs + s;
-      int fn[5] = {0, 0, 0, 0, 0};
-      unsigned long long fv[5] = {0, 0, 0, 0, 0};
-      if (t < n) {
-        const int4 c = cmd4[t];
-        const int prefix = c.x & 1023;
-        const int dsym = min((c.x >> 10) & 1023, kADst - 1);
-        const bool sd = (c.x >> 20) & 1;
-        fn[0] = clen[prefix];
-        fv[0] = ccode[prefix];
-        fn[1] = (c.x >> 21) & 31;
-        fv[1] = static_cast<unsigned>(c.z & 0xFFFFFF);
-        fn[2] = (c.x >> 26) & 31;
-        fv[2] = static_cast<unsigned>(c.w);
-        if (sd) {
-          fn[3] = dlen[dsym];
-          fv[3] = dcode[dsym];
-          fn[4] = (c.z >> 24) & 31;
-          fv[4] = static_cast<unsigned>(c.y);
-        }
-      } else if (t < ntotal) {
-        const int prefix =
-            t == n && has_tail ? kSentinel + tail_code : kSentinel;
-        fn[0] = clen[prefix];
-        fv[0] = ccode[prefix];
-        if (t == n && has_tail) {
-          fn[1] = insert_extra(tail_code);
-          fv[1] = static_cast<unsigned long long>(
-              tail - insert_base(tail_code));
-        }
-      }
-      for (int k = 0; k < 5; ++k, ++e)
-        if (e < edyn) bw.put(fn[k], fv[k]);
-      const long long rcur = rarr[r];
-      const long long lits = max(rcur - rprev, 0LL);
-      const long long cnt = (max(lits - s, 0LL) + 31) / 32;
-      for (long long i = 0; i < cnt && e < edyn; ++i, ++e) {
-        const long long j = rprev + i * kNbs + s;
-        const int byte = j < n_lits ? lq[j] : most_freq;
-        bw.put(llen[byte], lcode[byte]);
-      }
-      rprev = rcur;
+  };
+  // this warp's share of the items, lane s's slots of stream s in order
+  auto share = [&](auto& out) {
+    if (it0 >= it1) return;
+    int r = 0, hi = nR - 1;   // the round of item it0
+    while (r < hi) {
+      const int mid = (r + hi + 1) >> 1;
+      if (ic(mid) <= it0) r = mid;
+      else hi = mid - 1;
     }
-    bw.flush();
-    sm.bits[s] = bw.bits;
+    long long rprev = r ? rarr[r - 1] : 0, rcur = rarr[r];
+    int icr = ic(r);
+    for (int it = it0; it < it1; ++it) {
+      if (r + 1 < nR && it == ic(r + 1)) {
+        ++r;
+        rprev = rcur;
+        rcur = rarr[r];
+        icr = it;
+      }
+      if (it == icr) {
+        const long long e0 = 5LL * r + (rprev >> 5);
+        if (e0 >= edyn) continue;
+        const int t = r * kNbs + s;
+        int fn[5] = {0, 0, 0, 0, 0};
+        unsigned long long fv[5] = {0, 0, 0, 0, 0};
+        if (t < n) {
+          const int4 c = cmd4[t];
+          const int prefix = c.x & 1023;
+          const int dsym = min((c.x >> 10) & 1023, kADst - 1);
+          const bool sd = (c.x >> 20) & 1;
+          fn[0] = clen[prefix];
+          fv[0] = ccode[prefix];
+          fn[1] = (c.x >> 21) & 31;
+          fv[1] = static_cast<unsigned>(c.z & 0xFFFFFF);
+          fn[2] = (c.x >> 26) & 31;
+          fv[2] = static_cast<unsigned>(c.w);
+          if (sd) {
+            fn[3] = dlen[dsym];
+            fv[3] = dcode[dsym];
+            fn[4] = (c.z >> 24) & 31;
+            fv[4] = static_cast<unsigned>(c.y);
+          }
+        } else if (t < ntotal) {
+          const int prefix =
+              t == n && has_tail ? kSentinel + tail_code : kSentinel;
+          fn[0] = clen[prefix];
+          fv[0] = ccode[prefix];
+          if (t == n && has_tail) {
+            fn[1] = insert_extra(tail_code);
+            fv[1] = static_cast<unsigned long long>(
+                tail - insert_base(tail_code));
+          }
+        }
+        for (int k = 0; k < 5; ++k)
+          if (e0 + k < edyn) out.put(fn[k], fv[k]);
+      } else {
+        const long long q = (rprev >> 5) + (it - icr - 1);
+        const long long j = 32 * q + s;
+        if (j < rcur && 5LL * (r + 1) + q < edyn) {
+          const int byte = j < n_lits ? lq[j] : most_freq;
+          out.put(llen[byte], lcode[byte]);
+        }
+      }
+    }
+  };
+
+  // ---- pass A: the bits of each warp's share of each stream ----
+  {
+    BitCount tb, sh;
+    if (w == 0) table_block(tb);
+    share(sh);
+    sm.share[w][s] = sh.bits;
+    if (w == 0) sm.bits[s] = tb.bits;   // the table block leads
   }
   __syncthreads();
+  if (tid < kNbs) {   // the scan over the shares, one stream a thread
+    long long at = sm.bits[tid];
+    for (int k = 0; k < kWarps; ++k) {
+      const long long b = sm.share[k][tid];
+      sm.share[k][tid] = at;
+      at += b;
+    }
+    sm.bits[tid] = at;
+  }
+  __syncthreads();
+  mark(8);                                       // stream widths
 
-  mark(8);                                       // bit packing
   // ---- page header and size table (the fixed point) ----
   if (tid == 0) {
     long long tot = 0, mn = LLONG_MAX;
     bool overflow = false;
-    for (int s = 0; s < kNbs; ++s) {
-      const long long sb = (sm.bits[s] + 7) / 8;
+    for (int k = 0; k < kNbs; ++k) {
+      const long long sb = (sm.bits[k] + 7) / 8;
       tot += sb;
       mn = min(mn, sb);
-      overflow |= sm.bits[s] > 32LL * wst;
+      overflow |= sm.bits[k] > 32LL * wst;
     }
     int delta_bits = 1;
-    for (int s = 0; s < kNbs; ++s)
-      delta_bits = max(delta_bits, bitlen((sm.bits[s] + 7) / 8 - mn));
+    for (int k = 0; k < kNbs; ++k)
+      delta_bits = max(delta_bits, bitlen((sm.bits[k] + 7) / 8 - mn));
     long long est = 4 + tot;
     int base_bits = 0, dbs_bits = 0;
     for (int it = 0; it < 6; ++it) {
@@ -1099,16 +1408,23 @@ __global__ void __launch_bounds__(kThreads)
     hput(8, npostfix | (ndist << 2) | (isdelta << 6));
     hput(base_bits, mn);
     hput(dbs_bits, delta_bits);
-    for (int s = 0; s < kNbs; ++s)
-      hput(delta_bits, (sm.bits[s] + 7) / 8 - mn);
+    for (int k = 0; k < kNbs; ++k)
+      hput(delta_bits, (sm.bits[k] + 7) / 8 - mn);
     sm.sbp[0] = 0;
-    for (int s = 0; s < kNbs; ++s)
-      sm.sbp[s + 1] = sm.sbp[s] + (sm.bits[s] + 7) / 8;
+    for (int k = 0; k < kNbs; ++k)
+      sm.sbp[k + 1] = sm.sbp[k] + (sm.bits[k] + 7) / 8;
     const long long out_total = hdr_bytes + (tot + 3) / 4 * 4;
     out_sizes[page] = overflow ? page_size + 1
                                : static_cast<int32_t>(out_total);
     sm.hdr_bytes = hdr_bytes;
     sm.pay_end = (tot + 3) / 4 * 4;
+    // The plain assembly reads the padding after the streams from the
+    // last stream's words; past its Wst words that read lands on stream
+    // 31's last word. Such a page, and one whose streams overflow, takes
+    // the scratch's words and that assembly.
+    const long long last_pad =
+        (sm.bits[kNbs - 1] + 7) / 8 + (sm.pay_end - tot) - 1;
+    sm.spill = overflow || (sm.pay_end > tot && last_pad >= 4LL * wst);
     // the per-page record (read back by a diagnosis, never by a route)
     info[0] = npostfix;
     info[1] = ndist;
@@ -1117,55 +1433,122 @@ __global__ void __launch_bounds__(kThreads)
       info[5 + T] = sm.cnt[T];
       info[8 + T] = sm.tsel[T];
     }
+    info[kInfoBranch] = (sm.spill ? kBranchWords : 0) |
+                        (keys_shared ? 0 : kBranchKeys) |
+                        (lq_shared ? kBranchLq : 0);
     info[14] = n_lits;
     info[15] = most_freq;
     info[16] = ntotal;
     info[17] = nkeys;
     info[18] = offset_codes;
-    for (int s = 0; s < kNbs; ++s) info[19 + s] = static_cast<int>(sm.bits[s]);
-    stamp[9] = clock64();                         // header
+    for (int k = 0; k < kNbs; ++k) info[19 + k] = static_cast<int>(sm.bits[k]);
   }
   for (int i = tid; i < kATot; i += kThreads) info[64 + i] = sm.lens[i];
   __syncthreads();
-
-  // ---- assembly: header words, then the streams, DWORD padded ----
+  const bool spill = sm.spill;
   const long long hdr_bytes = sm.hdr_bytes;
-  const long long pay_end = sm.pay_end;
-  uint32_t* out = reinterpret_cast<uint32_t*>(
-      out_g + static_cast<size_t>(page) * page_size);
-  for (int q = tid; q < page_size / 4; q += kThreads) {
-    uint32_t word = 0;
-    for (int k = 0; k < 4; ++k) {
-      const long long b = 4LL * q + k;
-      unsigned byte = 0;
-      if (b < hdr_bytes) {
-        byte = (sm.hw[min(b >> 2, static_cast<long long>(kHW - 1))] >>
-                ((b & 3) * 8)) & 0xFF;
-      } else if (b - hdr_bytes < pay_end) {
-        const long long pay = b - hdr_bytes;
-        int lo = 0, hi = kNbs;          // last s in [0, 32] with sbp <= pay
-        while (lo < hi) {
-          const int mid = (lo + hi + 1) >> 1;
-          if (sm.sbp[mid] <= pay) lo = mid;
-          else hi = mid - 1;
-        }
-        const int s = min(lo, kNbs - 1);
-        const long long in = pay - sm.sbp[s];
-        const long long wi = min(max(s * static_cast<long long>(wst) +
-                                         (in >> 2), 0LL),
-                                 static_cast<long long>(kNbs) * wst - 1);
-        byte = (words[wi] >> ((in & 3) * 8)) & 0xFF;
-      }
-      word |= byte << (8 * k);
+  if (spill) {
+    for (int i = tid; i < kNbs * wst; i += kThreads) words[i] = 0u;
+  } else if (tid < hdr_bytes / 4 && tid < page_size / 4) {
+    img[tid] = sm.hw[tid];
+  }
+  __syncthreads();
+  mark(9);                                       // header
+
+  // ---- pass B: every slot ORed in at its bit offset ----
+  {
+    // warp 0 writes the table block first and runs on into its share
+    const long long at = w == 0 ? 0 : sm.share[w][s];
+    BitOr out = spill ? BitOr(words + static_cast<size_t>(s) * wst, wst, at)
+                      : BitOr(img, page_size / 4,
+                              8 * (hdr_bytes + sm.sbp[s]) + at);
+    if (w == 0) table_block(out);
+    share(out);
+    out.flush();
+  }
+  __syncthreads();
+  mark(10);                                      // bit packing
+
+  uint8_t* outp = out_g + static_cast<size_t>(page) * page_size;
+  if (!spill) {
+    // ---- copy out: the image, 16 bytes a thread where aligned ----
+    if (page_size % 16 == 0) {
+      const uint4* src = reinterpret_cast<const uint4*>(img);
+      uint4* dst = reinterpret_cast<uint4*>(outp);
+      for (int q = tid; q < page_size / 16; q += kThreads) dst[q] = src[q];
+    } else {
+      uint32_t* dst = reinterpret_cast<uint32_t*>(outp);
+      for (int q = tid; q < page_size / 4; q += kThreads) dst[q] = img[q];
     }
-    out[q] = word;
+  } else {
+    // ---- assembly: header words, then the streams, DWORD padded ----
+    const long long pay_end = sm.pay_end;
+    uint32_t* out = reinterpret_cast<uint32_t*>(outp);
+    for (int q = tid; q < page_size / 4; q += kThreads) {
+      uint32_t word = 0;
+      for (int k = 0; k < 4; ++k) {
+        const long long b = 4LL * q + k;
+        unsigned byte = 0;
+        if (b < hdr_bytes) {
+          byte = (sm.hw[min(b >> 2, static_cast<long long>(kHW - 1))] >>
+                  ((b & 3) * 8)) & 0xFF;
+        } else if (b - hdr_bytes < pay_end) {
+          const long long pay = b - hdr_bytes;
+          int lo = 0, hi = kNbs;        // last k in [0, 32] with sbp <= pay
+          while (lo < hi) {
+            const int mid = (lo + hi + 1) >> 1;
+            if (sm.sbp[mid] <= pay) lo = mid;
+            else hi = mid - 1;
+          }
+          const int k2 = min(lo, kNbs - 1);
+          const long long in = pay - sm.sbp[k2];
+          const long long wi = min(max(k2 * static_cast<long long>(wst) +
+                                           (in >> 2), 0LL),
+                                   static_cast<long long>(kNbs) * wst - 1);
+          byte = (words[wi] >> ((in & 3) * 8)) & 0xFF;
+        }
+        word |= byte << (8 * k);
+      }
+      out[q] = word;
+    }
   }
   __syncthreads();
   if (tid == 0) {
-    stamp[kPhases] = clock64();                  // assembly
+    stamp[kPhases] = clock64();                  // copy out or assembly
     for (int k = 0; k < kPhases; ++k)
       info[kInfoClocks + k] = static_cast<int>(stamp[k + 1] - stamp[k]);
   }
+}
+
+// The dynamic shared memory of a launch on the current device: Rarr,
+// then a region as large as the card allows up to what a page needs: the
+// image (and the literal queue after it where both fit), or during the
+// sort 4 * 2^ceil(log2 N) bytes of keys. Sets the bytes, the region and
+// whether the literal queue is in it; returns a CUDA error or 0.
+cudaError_t smem_plan(int N, int S, int page_size, long long* bytes,
+                      int* region, int* lq_shared) {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, pack_kernel);
+  if (e != cudaSuccess) return e;
+  const long long head = rarr_bytes(N);
+  const long long avail =
+      optin - static_cast<long long>(fa.sharedSizeBytes) - head;
+  const long long img = image_bytes(page_size);
+  const long long lqb = up16(S);
+  *lq_shared = img + lqb <= avail;
+  long long keys = 4;
+  while (keys < 4LL * N) keys <<= 1;
+  long long reg = img + (*lq_shared ? lqb : 0);
+  if (keys > reg) reg = keys < avail ? keys : avail;
+  if (reg < img) return cudaErrorInvalidValue;
+  *region = static_cast<int>(reg);
+  *bytes = head + reg;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -1181,6 +1564,19 @@ extern "C" long long blg_pack_info_offset(int N, int S, int page_size) {
   return blg_pack::Layout(N, S, page_size).info;
 }
 
+// Bytes of dynamic shared memory a launch at (N, S, page_size) takes on
+// the current device, or -1 if the page size does not fit.
+extern "C" long long blg_pack_smem(int N, int S, int page_size) {
+  long long bytes;
+  int region, lq_shared;
+  if (blg_pack::smem_plan(N, S, page_size, &bytes, &region, &lq_shared) !=
+      cudaSuccess) {
+    cudaGetLastError();
+    return -1;
+  }
+  return bytes;
+}
+
 // Launch the serializer over P pages (one block a page).
 extern "C" int blg_pack_pages(const void* pages, const void* in_sizes,
                               const void* ins, const void* cpy,
@@ -1189,11 +1585,14 @@ extern "C" int blg_pack_pages(const void* pages, const void* in_sizes,
                               int page_size, int max_cmds, void* out,
                               void* out_sizes, void* scratch, void* stream) {
   if (P <= 0) return 0;
-  const int rounds = (N + 1) / blg_pack::kNbs + 1;
-  const size_t smem = sizeof(long long) * static_cast<size_t>(rounds);
-  const cudaError_t e = cudaFuncSetAttribute(
-      blg_pack::pack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  long long smem;
+  int region, lq_shared;
+  cudaError_t e = blg_pack::smem_plan(N, S, page_size, &smem, &region,
+                                      &lq_shared);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(blg_pack::pack_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
   if (e != cudaSuccess) {
     cudaGetLastError();
     return static_cast<int>(e);
@@ -1204,7 +1603,7 @@ extern "C" int blg_pack_pages(const void* pages, const void* in_sizes,
       static_cast<const int32_t*>(ins), static_cast<const int32_t*>(cpy),
       static_cast<const int32_t*>(dist), static_cast<const int32_t*>(ncmds),
       static_cast<const int32_t*>(isdelta), S, N, page_size, max_cmds,
-      static_cast<uint8_t*>(out), static_cast<int32_t*>(out_sizes),
-      static_cast<int32_t*>(scratch));
+      region, lq_shared, static_cast<uint8_t*>(out),
+      static_cast<int32_t*>(out_sizes), static_cast<int32_t*>(scratch));
   return static_cast<int>(cudaGetLastError());
 }

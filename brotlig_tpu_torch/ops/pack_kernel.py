@@ -18,6 +18,12 @@ from .. import _kernels
 # distance, literal); the code lengths are the three tables' in a row.
 INFO_NPOSTFIX, INFO_NDIST = 0, 1
 INFO_MODE, INFO_COUNT, INFO_TSEL = 2, 5, 8
+# the size cases a page took (bits): its streams written into per-stream
+# words in the scratch and assembled byte by byte (a stream past its
+# words, or padding read from past them), its grid-search keys sorted in
+# the scratch (more commands than the shared region holds keys for), its
+# literal queue in shared memory (where it fits beside the page image)
+INFO_BRANCH, BRANCH_WORDS, BRANCH_KEYS, BRANCH_LQ = 11, 1, 2, 4
 INFO_NLITS, INFO_MOST_FREQ, INFO_NTOTAL, INFO_NKEYS, INFO_OFFSET_CODES = \
     14, 15, 16, 17, 18
 INFO_BITS, INFO_CLOCKS, INFO_LENS = 19, 52, 64
@@ -26,7 +32,8 @@ INFO_BITS, INFO_CLOCKS, INFO_LENS = 19, 52, 64
 PHASES = ("starts and ring codes", "distance sort", "grid search",
           "ring mode, fields, histograms, literal queue", "code lengths",
           "canonical codes and run-coded tables", "round schedule",
-          "bit packing", "header", "assembly")
+          "stream widths", "header", "bit packing",
+          "copy out or assembly")
 
 
 def pack_cuda(pages, in_sizes, ins, cpy, dist, ncmds, page_size: int,

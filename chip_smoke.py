@@ -65,8 +65,10 @@ kernel launches counted, its stages timed on a copy of its steps, and
 its ratio beside q1 and the native q11 encoder. Last, the serializer
 kernel is held to its plain version on the card (tolerance 0, bytes and
 sizes) on the q1 batch, both q11 packs and the texture's first q1 and
-q11 batches, timed beside its plain version and its bound, with its
-clock cycles by phase. Every stream encoded on the card is decoded on
+q11 batches, timed beside its plain version, its bound and its first
+design's time, with its clock cycles by phase, the size cases its
+pages took and its build's registers, spills and shared memory. Every
+stream encoded on the card is decoded on
 the card on both routes, with the launch counts checked, and those
 launches join the kernels line.
 
@@ -1358,6 +1360,26 @@ EAGER = {"q1 serializer": 180.203, "q1 total": 226.768, "q1 kernels": 16768,
          "q11 total": 776.076}
 
 
+# the kernel's first design (one block a page whose bit packing ran in
+# one warp: this script's raw launch on an NVIDIA H100 80GB HBM3,
+# 700.00 W; PERF.md section 6), by batch
+PACK_FIRST = {"q1": 1.0667, "q11 greedy": 1.0102, "q11 DP": 0.9824,
+             "texture q1": 1.2150, "texture q11 DP": 1.2359}
+
+
+def pack_kernel_report() -> str:
+    """ptxas's registers, barriers, stack, spills and static shared
+    memory of the serializer kernel, from the build log."""
+    from brotlig_tpu_torch import _kernels
+    found, inside = [], False
+    for line in _kernels.BUILD_LOG.splitlines():
+        if "Compiling entry function" in line:
+            inside = "pack_kernel" in line
+        elif inside and ("spill" in line or "registers" in line):
+            found.append(line.split(":", 1)[-1].strip())
+    return "; ".join(found) or "not in the build log"
+
+
 def pack_bytes(pages, ncmds) -> int:
     """The bytes the serializer must move: each page read once, the three
     int32 fields of each command and each page's size and count, the
@@ -1436,11 +1458,19 @@ def pack_phase(batches: dict, gpu) -> dict:
     """The serializer kernel held to its plain version on the card
     (tolerance 0, bytes and sizes) on each batch of pack_partitioned
     arguments, its raw launch timed by CUDA events beside the plain
-    version's one run and its bound. Returns the measures by batch."""
+    version's one run, its bound and its first design's time; its phases
+    from the per-page record, the size cases the pages took and the
+    build's registers, spills and shared memory. Returns the measures by
+    batch."""
     import torch
+    from brotlig_tpu_torch import _kernels
     from brotlig_tpu_torch.ops.encode_pack import pack_partitioned_plain
-    from brotlig_tpu_torch.ops.pack_kernel import (INFO_CLOCKS, PHASES,
+    from brotlig_tpu_torch.ops.pack_kernel import (BRANCH_KEYS, BRANCH_LQ,
+                                                   BRANCH_WORDS, INFO_BRANCH,
+                                                   INFO_CLOCKS, PHASES,
                                                    pack_cuda)
+    print(f"[smoke] pack kernel build: {pack_kernel_report()} [{gpu}]",
+          flush=True)
     res = {}
     for name, args in batches.items():
         pages, in_sizes, page, max_cmds, ins, cpy, dist, ncmds, flags = args
@@ -1465,13 +1495,20 @@ def pack_phase(batches: dict, gpu) -> dict:
         per_page = clocks.sum(1)
         slow = int(per_page.argmax())
         raw = int((got[1] >= in_sizes.to(torch.int64)).sum())
+        branch = info[:, INFO_BRANCH]
+        cases = {k: int(((branch & bit) != 0).sum()) for k, bit in (
+            ("words", BRANCH_WORDS), ("keys in the scratch", BRANCH_KEYS),
+            ("literal queue in shared memory", BRANCH_LQ))}
+        smem = _kernels.library().blg_pack_smem(ins.shape[1], page, page)
         print(f"[smoke] pack kernel == plain (tolerance 0, bytes and sizes) "
               f"on the {name} batch ({pages.shape[0]} pages, "
               f"{int(ncmds.sum())} commands, {raw} stored raw); kernel "
               f"{ms:.4f} ms (mean of {REPS} raw launches, "
-              f"{ms / pages.shape[0]:.4f} ms a page), plain {plain_ms:.1f} "
-              f"ms (one run on the card), bound {res[name]['bound_ms']:.5f} "
-              f"ms by bytes [{gpu}]", flush=True)
+              f"{ms / pages.shape[0]:.4f} ms a page; first design: "
+              f"{PACK_FIRST[name]} ms), plain {plain_ms:.1f} ms (one run on "
+              f"the card), bound {res[name]['bound_ms']:.5f} ms by bytes; "
+              f"dynamic shared memory {smem} B a block; pages by size case "
+              f"{cases} [{gpu}]", flush=True)
         print(f"[smoke] pack kernel phases on the {name} batch (thread 0's "
               f"clock, kcycles a page: mean over the pages / the slowest "
               f"page, row {slow}, {per_page[slow] / 1e3:.1f} kcycles in "

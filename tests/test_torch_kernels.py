@@ -729,44 +729,83 @@ def test_every_wrapper_launches_on_its_tensors_device(cuda_dev):
 
 # ---- the serializer kernel (csrc/pack.cu) against its plain version ----
 
+def _corpus_pages(n: int, S: int):
+    """n corpus pages of S bytes (the last one partial) with the fast
+    tier's commands: (pages, in_sizes, ins, cpy, dist, ncmds, isdelta)
+    numpy arrays, S // 4 + 16 command columns."""
+    from brotlig_tpu_torch.ops.encode import find_commands
+    from brotlig_tpu_torch.utils.corpus import corpus
+    arr = np.frombuffer(corpus(n, page=S), np.uint8).reshape(n, S).copy()
+    sizes = np.full(n, S, np.int64)
+    sizes[-1] -= S // 3
+    arr[-1, sizes[-1]:] = 0
+    cmds = find_commands(torch.from_numpy(arr), torch.from_numpy(sizes),
+                         S // 4 + 16, fast=True)
+    return (arr, sizes, *(c.numpy() for c in cmds), np.arange(n) % 2)
+
+
 def pack_case(case: str, dev):
     """A serializer batch on `dev`: (pages, in_sizes, ins, cpy, dist,
     ncmds, isdelta, page size, command bound). "mixed" and "edge" are
     tests/test_torch_pack.py's batches (several buckets, the overflow page;
     the edge pages), "encode_rows" tests/test_torch_encode.py's serializer
-    rows at the 2048 bucket, "corpus_64k" and "corpus_128k" 16 corpus
-    pages of 64 KiB and 4 of 128 KiB (the last one partial) with the fast
-    tier's commands."""
+    rows at the 2048 bucket, "corpus_32k", "corpus_64k" and "corpus_128k"
+    16 corpus pages of 32 and 64 KiB and 4 of 128 KiB (the last one
+    partial) with the fast tier's commands; the kernel's size cases:
+    "many_keys" (the page with more grid-search keys than its
+    shared-memory sort holds, beside a 128 KiB corpus page), "overflow"
+    (the overflow page beside a text page); "one_page" (a 1-page batch)
+    and "p144" (the 64 KiB pages 9 times over, 144 pages: more blocks than
+    SMs)."""
     import test_torch_pack as TPK
-    from brotlig_tpu_torch.ops.encode import find_commands
-    from brotlig_tpu_torch.utils.corpus import corpus
     if case == "mixed":
         ops, S, bound = TPK.mixed_batch(), TPK.S, TPK.WIDE_CMDS
     elif case == "edge":
         ops, S, bound = TPK.edge_batch()[1:], TPK.S, TPK.WIDE_CMDS
+    elif case == "overflow":
+        names, *ops = TPK.edge_batch()
+        keep = [names.index("overflow"), names.index("tail_only")]
+        ops, S, bound = [x[keep] for x in ops], TPK.S, TPK.WIDE_CMDS
     elif case == "encode_rows":
         ops, S, bound = (TPK.encode_test_rows(), TPK.S,
                          encode_pack.BUCKET_MIN)
-    else:
-        S, n = (65536, 16) if case == "corpus_64k" else (131072, 4)
+    elif case == "many_keys":
+        S = TPK.CORPUS_128K
+        data, ins, cpy, dist = TPK.many_keys_page()
+        corp = _corpus_pages(1, S)
         bound = S // 4 + 16
-        arr = np.frombuffer(corpus(n, page=S), np.uint8).reshape(n, S).copy()
-        sizes = np.full(n, S, np.int64)
-        sizes[-1] -= S // 3
-        arr[-1, sizes[-1]:] = 0
-        cmds = find_commands(torch.from_numpy(arr), torch.from_numpy(sizes),
-                             bound, fast=True)
-        ops = (arr, sizes, *(c.numpy() for c in cmds), np.arange(n) % 2)
+        ops = [np.concatenate([a, b]) for a, b in zip(
+            (np.frombuffer(data, np.uint8)[None], np.array([S]), ins[None],
+             cpy[None], dist[None], np.array([len(dist)]), np.array([0])),
+            corp)]
+    else:
+        S = {"corpus_32k": 32768, "corpus_128k": 131072}.get(case, 65536)
+        ops = _corpus_pages(4 if S == 131072 else 16, S)
+        bound = S // 4 + 16
+        if case == "one_page":
+            ops = [x[:1] for x in ops]
+        elif case == "p144":
+            ops = [np.concatenate([x] * 9) for x in ops]
+            ops[6] = np.arange(144) % 2
     return [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
             for x in ops] + [S, bound]
 
 
 @pytest.mark.parametrize("case", ["mixed", "edge", "encode_rows",
-                                  "corpus_64k", "corpus_128k"])
+                                  "corpus_32k", "corpus_64k", "corpus_128k",
+                                  "many_keys", "overflow", "one_page",
+                                  "p144"])
 def test_pack_kernel_matches_plain(cuda_dev, case):
     """pack_partitioned and pack_pages_device launch the kernel once for
     the whole batch, and their bytes and sizes equal the plain version's
-    on the card and on the CPU (tolerance 0)."""
+    on the card and on the CPU (tolerance 0). Each page's record shows the
+    size case it took: the literal queue in shared memory up to 64 KiB
+    pages, the sort in device memory only for the many-keys page, the
+    streams in device memory only where a stream overflows. Every page's
+    blob decodes on the card to its input."""
+    from brotlig_tpu_torch.format.headers import StreamHeader
+    from brotlig_tpu_torch.ops.encode import assemble
+    from brotlig_tpu_torch.parallel.runtime import decode_archives_batched
     pages, sizes, ins, cpy, dist, ncmds, isdelta, S, bound = pack_case(
         case, cuda_dev)
     _kernels.reset_launches()
@@ -785,6 +824,27 @@ def test_pack_kernel_matches_plain(cuda_dev, case):
         assert out[1].dtype == torch.int64
         assert torch.equal(out[1].cpu(), want[1].cpu())
         assert torch.equal(out[0].cpu(), want[0].cpu())
+    info = pack_kernel.pack_cuda(pages, sizes, ins, cpy, dist, ncmds, S,
+                                 bound, isdelta, return_info=True)[2].cpu()
+    branch = info[:, pack_kernel.INFO_BRANCH]
+    over = got[1].cpu() == S + 1
+    assert torch.equal((branch & pack_kernel.BRANCH_WORDS) != 0, over)
+    keys = (branch & pack_kernel.BRANCH_KEYS) != 0
+    assert keys.tolist() == [case == "many_keys" and i == 0
+                             for i in range(len(branch))]
+    assert bool(((branch & pack_kernel.BRANCH_LQ) != 0).all()) == (
+        S <= 65536)
+    assert (case == "overflow") <= bool(over.any())
+    arr, in_sizes = pages.cpu().numpy(), sizes.cpu().numpy()
+    blobs = encode_pack.page_blobs(got[0].cpu().numpy(),
+                                   got[1].cpu().numpy(), in_sizes, arr)
+    rows = [i for i in range(len(blobs)) if in_sizes[i]]
+    containers = [assemble(StreamHeader.for_input(int(in_sizes[i]), S,
+                                                  False), False, None,
+                           [blobs[i]]) for i in rows]
+    outs = decode_archives_batched(containers, device=cuda_dev)
+    for i, o in zip(rows, outs):
+        assert o == arr[i, :in_sizes[i]].tobytes()
 
 
 def test_pack_kernel_refuses_bad_shapes(cuda_dev):
