@@ -37,13 +37,13 @@ CSRC = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libbrotlig_kernels.so")
 SOURCES = ("tables.cu", "decode.cu", "phase_a.cu", "sweep.cu",
-           "dp_parse.cu", "pack.cu")
+           "dp_parse.cu", "pack.cu", "match.cu")
 HEADERS = ("lane_ops.cuh", "page_round.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"tables": 0, "decode": 0, "phase_a": 0, "sweep": 0,
-            "dp_parse": 0, "pack": 0}
+            "dp_parse": 0, "pack": 0, "match": 0}
 SWEEP_LAUNCHES = {128: 0, 512: 0, 1024: 0, 2048: 0}
 
 _lock = threading.Lock()
@@ -145,6 +145,24 @@ def library():
                    lib.blg_pack_smem):
             fn.restype = ctypes.c_longlong
             fn.argtypes = [i32, i32, i32]
+        lib.blg_match_smem.restype = ctypes.c_longlong
+        lib.blg_match_smem.argtypes = [i32, i32]
+        lib.blg_match_tiles.restype = i32
+        lib.blg_match_tiles.argtypes = [i32]
+        lib.blg_match_nodes_ints.restype = ctypes.c_longlong
+        lib.blg_match_nodes_ints.argtypes = [i32]
+        lib.blg_match_hist.restype = i32
+        lib.blg_match_hist.argtypes = [vp, vp, i32, i32, i32, i32, vp, vp,
+                                       vp]
+        lib.blg_match_scatter.restype = i32
+        lib.blg_match_scatter.argtypes = [vp, vp, i32, i32, i32, i32, vp, vp,
+                                          vp, vp, vp]
+        lib.blg_match_probe.restype = i32
+        lib.blg_match_probe.argtypes = [vp, vp, i32, i32, i32, i32, i32, vp,
+                                        vp, vp, vp, vp, vp, vp]
+        lib.blg_match_finish.restype = i32
+        lib.blg_match_finish.argtypes = [vp, i32, i32, i32, i32, vp, vp, vp,
+                                         vp, vp, vp, vp, vp, vp, vp]
         _lib = lib
         return _lib
 

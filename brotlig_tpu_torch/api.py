@@ -48,8 +48,9 @@ def encode(data: bytes, page_size: int = C.DEFAULT_PAGE_SIZE,
       falls back to its Python encoder there, which the port does not
       have).
 
-    `device` is where the device backends run: "cuda" raises when torch
-    has no CUDA device, "cpu" runs the same torch ops on the host.
+    `device` is where the device backends run: "cuda" (the matcher, the
+    DP and the serializer as CUDA kernels) raises when torch has no CUDA
+    device, "cpu" runs their plain torch versions on the host.
     `dc_params` enables BCn preconditioning (conditioned and delta-encoded
     on `device`). feedback(msg_type, text) -> bool mirrors
     BROTLIG_Feedback_Proc: called per page batch on the device backends

@@ -19,6 +19,14 @@ The output is dense (ins, cpy, dist) command arrays per page; the native
 packer (encode_stream) or the device serializer (ops/encode_pack.py)
 writes them.
 
+find_commands and find_candidates dispatch on the pages' device: CUDA
+tensors go to the hand-written kernels of csrc/match.cu (wrapper
+ops/match_kernel.py: a stable radix sort a key family and each
+position's rank in it, the probes over blocks of positions, the chain
+extension, and the greedy cover walked in segments that the true path
+joins), CPU tensors to find_commands_plain / find_candidates_plain, the
+torch ops below.
+
 The arithmetic is int64: the hashes' 32-bit products are taken modulo
 2^32 explicitly (`_mul32`), so the CPU and the card run the same ops (no
 uint32 shift, which torch's CPU build lacks). The windowed DP parse
@@ -37,6 +45,7 @@ from .. import native
 from ..format import constants as C
 from ..format.errors import Aborted, MessageType
 from ..format.headers import PreconditionHeader, StreamHeader, pack_page_table
+from . import match_kernel
 from .decode import resolve_device
 from .precondition import preprocess_device
 
@@ -301,7 +310,21 @@ def find_candidates(pages: torch.Tensor, in_sizes: torch.Tensor, cap: int):
     predecessors (smallest distance first), both gated at MIN_MATCH, then
     the two 3-byte-key slots (gated at >= 2). Lengths are clipped to `cap`
     (the DP's window). pages: uint8 [P, S]; in_sizes: [P]. Returns
-    (cand_len, cand_dist) [P, S, 8] int32."""
+    (cand_len, cand_dist) [P, S, 8] int32.
+
+    On CUDA tensors it launches the matcher's kernels (csrc/match.cu), on
+    CPU tensors it runs find_candidates_plain."""
+    if pages.is_cuda:
+        return match_kernel.find_candidates_cuda(pages, in_sizes, cap)
+    if pages.device.type == "cpu":
+        return find_candidates_plain(pages, in_sizes, cap)
+    raise ValueError(f"no find_candidates route for device {pages.device}")
+
+
+def find_candidates_plain(pages: torch.Tensor, in_sizes: torch.Tensor,
+                          cap: int):
+    """find_candidates as torch ops, on any device (the JAX package's
+    compiled find_candidates, op for op)."""
     best_len, best_dist, near_len, near_dist, (t_len, t_dist) = \
         _scan_matches(pages, in_sizes, with_tri=True)
     cand_len = torch.cat([best_len.clamp(max=cap)[:, :, None],
@@ -319,7 +342,23 @@ def find_commands(pages: torch.Tensor, in_sizes: torch.Tensor,
     pages: uint8 [P, S]; in_sizes: [P] integer page sizes.
     Returns (ins, cpy, dist [P, max_cmds] int32, ncmds [P] int32):
     commands cover a prefix of each page; the rest is the caller's
-    insert-only tail. fast=True is the q1 tier (see _scan_matches)."""
+    insert-only tail. fast=True is the q1 tier (see _scan_matches).
+
+    On CUDA tensors it launches the matcher's kernels (csrc/match.cu), on
+    CPU tensors it runs find_commands_plain."""
+    if pages.is_cuda:
+        return match_kernel.find_commands_cuda(pages, in_sizes, max_cmds,
+                                               fast)
+    if pages.device.type == "cpu":
+        return find_commands_plain(pages, in_sizes, max_cmds, fast)
+    raise ValueError(f"no find_commands route for device {pages.device}")
+
+
+def find_commands_plain(pages: torch.Tensor, in_sizes: torch.Tensor,
+                        max_cmds: int, fast: bool = False):
+    """find_commands as torch ops, on any device (the JAX package's
+    compiled find_commands, op for op: the greedy cover by jump doubling
+    and orbit listing)."""
     P, S = pages.shape
     dev = pages.device
     limit = in_sizes.to(I64)[:, None]

@@ -43,8 +43,9 @@ encode_archives_gather in two gloo worker processes that both run on
 cuda:0, then in a one-rank NCCL group, every rank's lists equal to the
 inputs; and both profile tools (brotlig_tpu_torch/tools) once, small.
 
-Then it encodes on the card (the matcher is torch ops, the serializer
-the hand-written kernel csrc/pack.cu, one launch a batch): the
+Then it encodes on the card (the matcher is the hand-written kernels of
+csrc/match.cu, six launches a call, the serializer the hand-written
+kernel csrc/pack.cu, one launch a batch): the
 full-device q1 path, encode_pages_device(quality=1), on 32 pages of the
 corpus, its matcher, serializer and host stages timed, its aten ops,
 CUDA kernels, serializer launches and peak memory counted, and every
@@ -67,7 +68,13 @@ kernel is held to its plain version on the card (tolerance 0, bytes and
 sizes) on the q1 batch, both q11 packs and the texture's first q1 and
 q11 batches, timed beside its plain version, its bound and its first
 design's time, with its clock cycles by phase, the size cases its
-pages took and its build's registers, spills and shared memory. Every
+pages took and its build's registers, spills and shared memory. Then the
+matcher's kernels are held to their plain versions on the card
+(tolerance 0) on the q1 batch (fast tier), the q11 batch (exact tier and
+find_candidates) and the texture's first q1 and q11 batches, their six
+raw launches timed beside the plain version and the bound (bytes, and
+the probes the data needs), and their launches on the q1, hybrid, q11
+and texture paths checked (six a call). Every
 stream encoded on the card is decoded on
 the card on both routes, with the launch counts checked, and those
 launches join the kernels line.
@@ -467,7 +474,7 @@ def want_launches(cases, runs) -> tuple:
     every kernel of its route launches once a batch: (counts, sweep
     counts by width)."""
     counts = {"tables": 0, "decode": 0, "phase_a": 0, "sweep": 0,
-              "dp_parse": 0, "pack": 0}
+              "dp_parse": 0, "pack": 0, "match": 0}
     by_cw = dict.fromkeys(SWEEP_CWS, 0)
     for name, opts in runs:
         nb = batches_of(cases[name][1])
@@ -913,7 +920,7 @@ def sharded_phase(data: bytes, blob: bytes, gpu) -> dict:
             raise AssertionError(f"decode_stream_sharded over {name} "
                                  "differs from the input")
         if counts != {"tables": want, "decode": want, "phase_a": 0,
-                      "sweep": 0, "dp_parse": 0, "pack": 0}:
+                      "sweep": 0, "dp_parse": 0, "pack": 0, "match": 0}:
             raise AssertionError(f"decode_stream_sharded over {name} "
                                  f"launched {counts}, want {want} each")
         for k in total:
@@ -950,6 +957,7 @@ def dryrun_phase(gpu) -> dict:
     import torch
     from brotlig_tpu_torch import _kernels, entry
     from brotlig_tpu_torch.format.headers import parse_container
+    from brotlig_tpu_torch.ops import match_kernel as MK
     from brotlig_tpu_torch.parallel.sharding import shard_bounds
     n = torch.cuda.device_count()
     _kernels.reset_launches()
@@ -960,11 +968,14 @@ def dryrun_phase(gpu) -> dict:
     _, blob = entry.bc1_container(64 * 1024, max(n, 4), "cuda")
     n_comp = len(parse_container(blob).compressed_page_indices())
     want = sum(hi > lo for lo, hi in shard_bounds(n_comp, n)) + n
-    # the BC1 container is encoded by the full route at q1: one batch
+    # the BC1 container is encoded by the full route at q1: one batch;
+    # then find_commands once a device
+    match = MK.LAUNCHES_PER_CALL * (1 + n)
     if counts != {"tables": want, "decode": want, "phase_a": 0, "sweep": 0,
-                  "dp_parse": 0, "pack": 1}:
+                  "dp_parse": 0, "pack": 1, "match": match}:
         raise AssertionError(f"dryrun_multichip({n}) launched {counts}, "
-                             f"want {want} each and one pack")
+                             f"want {want} each, one pack and {match} "
+                             "matcher launches")
     print(f"[smoke] dryrun_multichip({n}): {secs:.1f} s, launches {counts} "
           f"[{gpu}]", flush=True)
     return {k: counts[k] for k in ("tables", "decode")}
@@ -1075,10 +1086,10 @@ def decode_on_card(blob: bytes, data: bytes, what: str) -> dict:
     for route, opts, want in (
             ("fused", {},
              {"tables": nb, "decode": nb, "phase_a": 0, "sweep": 0,
-              "dp_parse": 0, "pack": 0}),
+              "dp_parse": 0, "pack": 0, "match": 0}),
             ("two_phase", {"variant": "two_phase", "sweep_cw": 1024},
              {"tables": nb, "decode": 0, "phase_a": nb, "sweep": nb,
-              "dp_parse": 0, "pack": 0})):
+              "dp_parse": 0, "pack": 0, "match": 0})):
         _kernels.reset_launches()
         if brotlig_tpu_torch.decode(blob, device="cuda", **opts) != data:
             raise AssertionError(f"{what}: decode on the card {opts} "
@@ -1103,6 +1114,7 @@ def encode_q1_phase(data: bytes, dev, gpu) -> dict:
     import torch
     from brotlig_tpu_torch import _kernels, native
     from brotlig_tpu_torch.ops.encode import find_commands
+    from brotlig_tpu_torch.ops import match_kernel as MK
     from brotlig_tpu_torch.ops.encode_pack import (command_bucket,
                                                    encode_pages_device,
                                                    pack_partitioned,
@@ -1145,9 +1157,11 @@ def encode_q1_phase(data: bytes, dev, gpu) -> dict:
         raise AssertionError("encode_pages_device differs from its steps")
     runs = [run()[2] for _ in range(ENC_REPS)]
     packs = _kernels.LAUNCHES["pack"]
-    if packs != ENC_REPS + 2:
-        raise AssertionError(f"full-device q1: {packs} pack kernel launches "
-                             f"for {ENC_REPS + 2} batches")
+    matches = _kernels.LAUNCHES["match"]
+    if packs != ENC_REPS + 2 or matches != MK.LAUNCHES_PER_CALL * packs:
+        raise AssertionError(f"full-device q1: {packs} pack and {matches} "
+                             f"matcher kernel launches for {ENC_REPS + 2} "
+                             "batches")
     med = {k: float(np.median([r[k] for r in runs])) for k in runs[0]}
     torch.cuda.reset_peak_memory_stats(dev)
     work = device_work(run)
@@ -1185,6 +1199,14 @@ def encode_q1_phase(data: bytes, dev, gpu) -> dict:
           f"kernels a batch {work['kernels'] or 'not measured'} (eager: "
           f"{EAGER['q1 kernels']}, {EAGER['q1 serializer kernels']} of them "
           f"the serializer's) [{gpu}]", flush=True)
+    print(f"[smoke] full-device q1 matcher stage beside its eager run "
+          f"(NVIDIA H100 80GB HBM3, 700.00 W): matcher {med['matcher']:.3f} "
+          f"ms (eager: {EAGER['q1 matcher']}), total {med['total']:.3f} ms "
+          f"(eager: {EAGER['q1 total, eager matcher']}), CUDA kernels a "
+          f"batch {work['kernels'] or 'not measured'} (eager: "
+          f"{EAGER['q1 kernels, eager matcher']}); matcher kernel launches "
+          f"{matches} ({MK.LAUNCHES_PER_CALL} a batch) [{gpu}]",
+          flush=True)
     for name, w in stage.items():
         busy = (f"{w['kernel_ms']:.3f} ms of kernel time in "
                 f"{med[name]:.3f} ms, device idle "
@@ -1222,6 +1244,7 @@ def encode_q1_phase(data: bytes, dev, gpu) -> dict:
             "host_ms": med["host"], "total_ms": med["total"],
             "gbps": nbytes / med["total"] / 1e6, "ratio": ratio,
             "peak_mib": peak / 2**20, "stage": stage, "packs": packs,
+            "matches": matches,
             "pack_in": (pages, in_sizes, PAGE, max_cmds,
                         *[c.to(dev) for c in cmds], flags),
             **work}
@@ -1234,23 +1257,32 @@ def hybrid_phase(data: bytes, native_blob: bytes, gpu) -> dict:
     import numpy as np
     import torch
     import brotlig_tpu_torch
+    from brotlig_tpu_torch import _kernels
+    from brotlig_tpu_torch.ops import match_kernel as MK
     times, blobs = [], []
+    _kernels.reset_launches()
     for _ in range(ENC_REPS + 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         blobs.append(brotlig_tpu_torch.encode(data, device="cuda"))
         times.append((time.perf_counter() - t0) * 1e3)
+    matches = _kernels.LAUNCHES["match"]
+    want = MK.LAUNCHES_PER_CALL * -(-len(data) // PAGE // 64) * (ENC_REPS + 1)
     if any(b != blobs[0] for b in blobs):
         raise AssertionError("hybrid encode is not deterministic")
+    if matches != want:
+        raise AssertionError(f"hybrid encode: {matches} matcher kernel "
+                             f"launches, want {want}")
     med = float(np.median(times[1:]))
     ratio = len(data) / len(blobs[0])
     print(f"[smoke] hybrid encode (brotlig_tpu_torch.encode, device "
           f"'cuda') of the 16 MiB corpus: {[round(t, 3) for t in times]} "
           f"ms -> {len(data) / med / 1e6:.4f} GB/s (median of warm runs), "
           f"ratio {ratio:.4f}; native q11 ratio "
-          f"{len(data) / len(native_blob):.4f} [{gpu}]", flush=True)
+          f"{len(data) / len(native_blob):.4f}; matcher kernel launches "
+          f"{matches} [{gpu}]", flush=True)
     return {"launches": decode_on_card(blobs[0], data, "hybrid stream"),
-            "ms": med, "ratio": ratio}
+            "ms": med, "ratio": ratio, "matches": matches}
 
 
 def texture_encode_phase(name: str, tex: bytes, params, gpu) -> dict:
@@ -1258,15 +1290,17 @@ def texture_encode_phase(name: str, tex: bytes, params, gpu) -> dict:
     full route at q1 and at q11 (conditioned and delta-encoded on the
     card; the full route in its default 64-page batches), each timed with
     its peak device memory and DP kernel launches (iterations x batches
-    at q11, none otherwise) and decoded on the card back to the texture.
+    at q11, none otherwise) and matcher kernel launches (a call a batch,
+    two at q11) and decoded on the card back to the texture.
     Returns (the decode launches, the DP inputs of the q11 route's first
     batch and iteration: litq, cand_len, dpackq, jointEq, jointLq, and
     the serializer's first-batch arguments: the q1 route's greedy pack and
-    the q11 route's DP pack, with the pack kernel launches of both)."""
+    the q11 route's DP pack, with the pack kernel launches of both, and
+    the matcher kernel launches of all three routes)."""
     import torch
     import brotlig_tpu_torch
     from brotlig_tpu_torch import _kernels
-    from brotlig_tpu_torch.ops import encode_pack, parse_dp
+    from brotlig_tpu_torch.ops import encode_pack, match_kernel, parse_dp
     iters = int(os.environ.get("BLG_DP_ITERS", "3"))
     nbatch = -(-len(tex) // PAGE // 64)
     launches, first, packs = [], [], {}
@@ -1300,20 +1334,27 @@ def texture_encode_phase(name: str, tex: bytes, params, gpu) -> dict:
         peak = torch.cuda.max_memory_allocated()
         dp = _kernels.LAUNCHES["dp_parse"]
         pk = _kernels.LAUNCHES["pack"]
+        mt = _kernels.LAUNCHES["match"]
         full = backend == "full"
         want = iters * nbatch if (backend, quality) == ("full", 11) else 0
         want_pk = full * nbatch * (1 + (quality >= 10))
-        if dp != want or pk != want_pk:
-            raise AssertionError(f"{name}, {backend} q{quality}: {dp} DP "
-                                 f"and {pk} pack kernel launches, want "
-                                 f"{want} and {want_pk}")
+        # the greedy cover a batch, and the DP's candidates at q11
+        want_mt = (match_kernel.LAUNCHES_PER_CALL * nbatch
+                   * (1 + (full and quality >= 10)))
+        if dp != want or pk != want_pk or mt != want_mt:
+            raise AssertionError(f"{name}, {backend} q{quality}: {dp} DP, "
+                                 f"{pk} pack and {mt} matcher kernel "
+                                 f"launches, want {want}, {want_pk} and "
+                                 f"{want_mt}")
+        packs["match launches"] = packs.get("match launches", 0) + mt
         if full:    # the first batch's pack: greedy at q1, the DP's at q11
             packs[f"q{quality}"] = calls[quality >= 10]
             packs["launches"] = packs.get("launches", 0) + pk
         print(f"[smoke] {name}, {backend} encode (q{quality}) on the card: "
               f"{ms:.1f} ms, ratio {len(tex) / len(blob):.4f}, peak "
               f"{peak / 2**20:.1f} MiB allocated, DP kernel launches {dp}, "
-              f"pack kernel launches {pk} [{gpu}]", flush=True)
+              f"pack kernel launches {pk}, matcher kernel launches {mt} "
+              f"[{gpu}]", flush=True)
         launches.append(decode_on_card(blob, tex, f"{name}, {backend} "
                                        f"encode (q{quality})"))
     return launches, tuple(first), packs
@@ -1351,13 +1392,18 @@ def cli_phase(data: bytes, gpu) -> None:
 # The serializer kernel (csrc/pack.cu) against its plain version
 # ---------------------------------------------------------------------------
 
-# the encode path's figures when the serializer ran as eager torch ops
-# (this script's encode phases on an NVIDIA H100 80GB HBM3, 700.00 W;
-# PERF.md sections 5 and 6)
+# the encode path's figures when a stage ran as eager torch ops (this
+# script's encode phases on an NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
+# sections 5 and 6): the serializer's (before its kernel), and the
+# matcher's (the last run before its kernels, with the serializer kernel)
 EAGER = {"q1 serializer": 180.203, "q1 total": 226.768, "q1 kernels": 16768,
          "q1 serializer kernels": 13403, "q11 entry": 809.0,
          "q11 greedy pack": 65.704, "q11 DP pack": 127.907,
-         "q11 total": 776.076}
+         "q11 total": 776.076,
+         "q1 matcher": 61.691, "q1 total, eager matcher": 63.326,
+         "q1 kernels, eager matcher": 3369, "q11 greedy matcher": 126.607,
+         "q11 find_candidates": 135.063, "q11 entry, eager matcher": 578.175,
+         "q11 kernels, eager matcher": 28983}
 
 
 # the kernel's first design (one block a page whose bit packing ran in
@@ -1516,6 +1562,176 @@ def pack_phase(batches: dict, gpu) -> dict:
                   f"{ph} {clocks[:, k].mean() / 1e3:.1f} / "
                   f"{clocks[slow, k] / 1e3:.1f}"
                   for k, ph in enumerate(PHASES)) + f" [{gpu}]", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# The matcher's kernels (csrc/match.cu) against their plain versions
+# ---------------------------------------------------------------------------
+
+# operations a probe needs at least (load its pair, compare the key, load
+# and compare a word of each suffix, fold into the best), and a position a
+# key family (its hash and two counting passes of the sort)
+OPS_PER_PROBE = 6
+OPS_PER_KEY = 8
+
+
+def match_kernel_report() -> str:
+    """ptxas's registers, stack and spills of the matcher's four kernels,
+    from the build log."""
+    from brotlig_tpu_torch import _kernels
+    found, name = [], None
+    for line in _kernels.BUILD_LOG.splitlines():
+        if "Compiling entry function" in line:
+            name = next((k for k in ("hist", "scatter", "probe", "finish")
+                         if f"{k}_kernel" in line and "blg_match" in line),
+                        None)
+        elif name and ("registers" in line or "spill" in line):
+            found.append(f"{name}: {line.split(':', 1)[-1].strip()}")
+    return "; ".join(found) or "not in the build log"
+
+
+def match_work(pages, in_sizes, nfam: int) -> tuple:
+    """(probes, operations) these pages ask of the matcher: each position
+    a family keys inside its page probes min(family's probes, earlier
+    positions with its key), as the plain version's stable sort ranks them
+    (computed on the card)."""
+    import torch
+    from brotlig_tpu_torch.ops import encode as TE
+    P, S = pages.shape
+    limit = in_sizes.long()[:, None]
+    iota = torch.arange(S, device=pages.device)[None, :].expand(P, S)
+    q = TE._quads(pages)
+    hq = TE._mul32(q, TE.HASH_MUL)
+    b = pages.long()
+    tri = b | (TE._shift_left(b, 1) << 8) | (TE._shift_left(b, 2) << 16)
+    fams = [(hq >> 16, 4, TE.NUM_CANDIDATES),
+            ((hq ^ TE._mul32(TE._shift_left(q, 4), TE.HASH_MUL_8)) >> 16, 8,
+             TE.NUM_CANDIDATES_8),
+            (TE._mul32(tri, TE.HASH_MUL_8) >> 16, 3, 2)][:nfam]
+    probes = keyed = 0
+    for key, nbytes, nprobe in fams:
+        inside = iota + nbytes <= limit
+        ks, _ = torch.sort(torch.where(inside, key, -1 - iota), dim=1,
+                           stable=True)
+        idx = iota
+        new = torch.ones_like(inside)
+        new[:, 1:] = ks[:, 1:] != ks[:, :-1]
+        start = torch.cummax(torch.where(new, idx, 0), dim=1).values
+        probes += int(torch.where(ks >= 0, (idx - start).clamp(max=nprobe),
+                                  0).sum())
+        keyed += int(inside.sum())
+    return probes, OPS_PER_PROBE * probes + OPS_PER_KEY * keyed
+
+
+def match_launches(pages, in_sizes, kind: str, param: int) -> tuple:
+    """The matcher's raw launches on a batch, as three functions: the sort
+    (hist and scatter, twice), probe and finish; kind "fast" or "exact"
+    (the cover; param = max_cmds) or "candidates" (param = cap), with
+    operands and scratch allocated once."""
+    import torch
+    from brotlig_tpu_torch import _kernels
+    from brotlig_tpu_torch.ops import match_kernel as MK
+    lib = _kernels.library()
+    P, S = pages.shape
+    dev = pages.device
+    cands = kind == "candidates"
+    nfam = MK.FAMILIES_CANDIDATES if cands else MK.FAMILIES_COVER
+    words = MK.FAST_WORDS if kind == "fast" else MK.EXACT_WORDS
+    sizes = in_sizes.to(torch.int32).contiguous()
+    pages = pages.contiguous()
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+    hist = empty(P, nfam, 256, lib.blg_match_tiles(S))
+    pairs1, pairs2 = empty(P, nfam, 2 * S), empty(P, nfam, 2 * S)
+    rank, lens, dists = empty(P, nfam, S), empty(P, S), empty(P, S)
+    if cands:
+        out = [empty(P, S, 8), empty(P, S, 8)]
+        fin = [1, param, lens, dists, *[None] * 6, out[0]]
+    else:
+        out = [None, None]
+        fin = [param, 0, lens, dists, empty(P, S),
+               empty(P, lib.blg_match_nodes_ints(S)),
+               *[empty(P, param) for _ in range(3)], empty(P), None]
+    common = [pages, sizes, P, S, nfam]
+    passes = [raw_launch(fn, [*common, pas, *args], dev)
+              for pas, src, dst in ((0, pairs1, pairs1), (1, pairs1, pairs2))
+              for fn, args in ((lib.blg_match_hist, [src, hist]),
+                               (lib.blg_match_scatter,
+                                [hist, src, dst, rank]))]
+
+    def sort():
+        for run in passes:
+            run()
+    return (sort,
+            raw_launch(lib.blg_match_probe,
+                       [*common, words, param if cands else 0, pairs2,
+                        rank, lens, dists, *out], dev),
+            raw_launch(lib.blg_match_finish, [sizes, P, S, *fin], dev))
+
+
+def match_phase(batches: dict, gpu) -> dict:
+    """The matcher's kernels held to their plain versions on the card
+    (tolerance 0: commands and counts, or candidates) on each batch of
+    (pages, in_sizes, kind), the six raw launches timed by CUDA events
+    (the sort's four alone, with probe, with finish: the differences split
+    the time) beside the plain version's one run and the bound. Returns
+    the measures by batch."""
+    import torch
+    from brotlig_tpu_torch import _kernels
+    from brotlig_tpu_torch.ops import encode as TE
+    from brotlig_tpu_torch.ops import match_kernel as MK
+    from brotlig_tpu_torch.ops import parse_dp
+    smem = [_kernels.library().blg_match_smem(k, PAGE) for k in range(5)]
+    print(f"[smoke] match kernels build: {match_kernel_report()}; dynamic "
+          f"shared memory at 64 KiB pages: hist {smem[0]}, scatter "
+          f"{smem[1]}, probe {smem[2]}, finish {smem[3]} (cover) / "
+          f"{smem[4]} (candidates) B a block [{gpu}]", flush=True)
+    res = {}
+    for name, (pages, in_sizes, kind) in batches.items():
+        P, S = pages.shape
+        cands = kind == "candidates"
+        param = parse_dp.WINDOW if cands else S // 4 + 16
+        if cands:
+            got = MK.find_candidates_cuda(pages, in_sizes, param)
+            plain = (lambda: TE.find_candidates_plain(pages, in_sizes,
+                                                      param))
+            nbytes = P * S + 4 * P + 2 * 4 * P * S * 8
+        else:
+            got = MK.find_commands_cuda(pages, in_sizes, param,
+                                        kind == "fast")
+            plain = (lambda: TE.find_commands_plain(pages, in_sizes, param,
+                                                    kind == "fast"))
+            nbytes = P * S + 4 * P + 3 * 4 * P * param + 4 * P
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = plain()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max_abs_err(got, want)
+        if err != 0:
+            raise AssertionError(f"match kernels disagree with plain on the "
+                                 f"{name} batch: {err}")
+        sort, probe, finish = match_launches(pages, in_sizes, kind, param)
+        t_sort = time_ms(sort, REPS)
+        t_probe = time_ms(lambda: (sort(), probe()), REPS)
+        ms = time_ms(lambda: (sort(), probe(), finish()), REPS)
+        probes, ops = match_work(pages, in_sizes,
+                                 MK.FAMILIES_CANDIDATES if cands
+                                 else MK.FAMILIES_COVER)
+        res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     **bound(nbytes, ops)}
+        extra = ("" if cands else
+                 f", {int(got[3].sum())} commands")
+        print(f"[smoke] match kernels == plain (tolerance 0) on the {name} "
+              f"batch ({P} x {S // 1024} KiB pages, {kind}{extra}); kernels "
+              f"{ms:.4f} ms (mean of {REPS} runs of the six raw launches: "
+              f"sort {t_sort:.4f}, probe {t_probe - t_sort:.4f}, finish "
+              f"{ms - t_probe:.4f}), plain {plain_ms:.1f} ms (one run on the "
+              f"card), bound {res[name]['bound_ms']:.5f} ms by "
+              f"{res[name]['bound_by']} ({nbytes} B, {probes} probes, {ops} "
+              f"operations) [{gpu}]", flush=True)
     return res
 
 
@@ -1697,6 +1913,7 @@ def q11_phase(data: bytes, dev, gpu, tex_dp) -> dict:
     import numpy as np
     import torch
     from brotlig_tpu_torch import _kernels, native
+    from brotlig_tpu_torch.ops import match_kernel as MK
     from brotlig_tpu_torch.ops import parse_dp
     from brotlig_tpu_torch.ops.encode import find_candidates, find_commands
     from brotlig_tpu_torch.ops.encode_pack import encode_pages_device
@@ -1750,8 +1967,9 @@ def q11_phase(data: bytes, dev, gpu, tex_dp) -> dict:
     finally:
         parse_dp.dp_parse_plain = plain
     launches = counts["dp_parse"]
+    # a run: the greedy cover and the DP's candidates, six launches each
     want = {**dict.fromkeys(counts, 0), "dp_parse": iters * nruns,
-            "pack": 2 * nruns}
+            "pack": 2 * nruns, "match": 2 * MK.LAUNCHES_PER_CALL * nruns}
     if counts != want or plain_calls:
         raise AssertionError(f"q11: encode_pages_device launched {counts} "
                              f"(want {want}) and {len(plain_calls)} plain "
@@ -1787,6 +2005,17 @@ def q11_phase(data: bytes, dev, gpu, tex_dp) -> dict:
           f"stage total {med['total']:.3f} ms (eager: {EAGER['q11 total']}); "
           f"pack kernel launches {counts['pack']} ({nruns} runs x 2 packs) "
           f"[{gpu}]", flush=True)
+    print(f"[smoke] full-device q11 matcher stages beside their eager run "
+          f"(NVIDIA H100 80GB HBM3, 700.00 W): greedy matcher "
+          f"{med['greedy matcher']:.3f} ms (eager: "
+          f"{EAGER['q11 greedy matcher']}), find_candidates "
+          f"{med['find_candidates']:.3f} ms (eager: "
+          f"{EAGER['q11 find_candidates']}), entry point {total:.3f} ms "
+          f"(eager: {EAGER['q11 entry, eager matcher']}), CUDA kernels a "
+          f"call {work['kernels'] or 'not measured'} (eager: "
+          f"{EAGER['q11 kernels, eager matcher']}); matcher kernel launches "
+          f"{counts['match']} ({nruns} runs x 2 calls x "
+          f"{MK.LAUNCHES_PER_CALL}) [{gpu}]", flush=True)
     print(f"[smoke] full-device q11 stage breakdown (chip_smoke's copy of "
           f"encode_pages_device's steps, CUDA events per device stage), "
           f"median of {ENC_REPS} runs (ms): "
@@ -1873,7 +2102,7 @@ def q11_phase(data: bytes, dev, gpu, tex_dp) -> dict:
                                        arr.tobytes(),
                                        "full-device q11 container"),
             "dp": {**k_dp, "launches": launches}, "packs": counts["pack"],
-            "pack_in": runs[0][3]}
+            "matches": counts["match"], "pack_in": runs[0][3]}
 
 
 def main() -> int:
@@ -2071,7 +2300,7 @@ def main() -> int:
           f"run equal to the input; launches {counts} (once a batch: "
           f"{nb})", flush=True)
     if counts != {"tables": nb, "decode": nb, "phase_a": 0, "sweep": 0,
-                  "dp_parse": 0, "pack": 0}:
+                  "dp_parse": 0, "pack": 0, "match": 0}:
         raise AssertionError("the repeated decodes did not launch their "
                              "kernels once a batch")
     pipeline_never_syncs(blob64, dev)
@@ -2099,7 +2328,7 @@ def main() -> int:
             raise AssertionError(f"pooled decode {r} differs from the "
                                  "inputs")
         if pool != {"tables": nb, "decode": nb, "phase_a": 0, "sweep": 0,
-                    "dp_parse": 0, "pack": 0}:
+                    "dp_parse": 0, "pack": 0, "match": 0}:
             raise AssertionError(f"pooled decode launched {pool}, want "
                                  f"{nb} batches")
     torch.cuda.synchronize()
@@ -2221,6 +2450,7 @@ def main() -> int:
     print(f"[smoke] q11 phase {time.perf_counter() - t1:.1f} s [{gpu}]",
           flush=True)
     t1 = time.perf_counter()
+    k_pack_in = enc["pack_in"], q11["pack_in"]["greedy"]
     k_pack = pack_phase({"q1": enc.pop("pack_in"),
                          "q11 greedy": q11["pack_in"]["greedy"],
                          "q11 DP": q11.pop("pack_in")["DP"],
@@ -2231,7 +2461,24 @@ def main() -> int:
           f"kernel launches on the encode main paths {pack_launches} "
           f"(q1 {enc['packs']}, q11 {q11['packs']}, texture "
           f"{tex_packs['launches']}) [{gpu}]", flush=True)
-    del tex_packs
+    t1 = time.perf_counter()
+    q1_in, q11_in = k_pack_in
+    k_match = match_phase({
+        "q1": (*q1_in[:2], "fast"),
+        "q11 greedy": (*q11_in[:2], "exact"),
+        "q11 candidates": (*q11_in[:2], "candidates"),
+        "texture q1": (*tex_packs["q1"][:2], "fast"),
+        "texture q11 greedy": (*tex_packs["q11"][:2], "exact"),
+        "texture q11 candidates": (*tex_packs["q11"][:2], "candidates")},
+        gpu)
+    match_launches_main = (enc["matches"] + hyb["matches"] + q11["matches"]
+                           + tex_packs["match launches"])
+    print(f"[smoke] match phase {time.perf_counter() - t1:.1f} s; matcher "
+          f"kernel launches on the encode main paths {match_launches_main} "
+          f"(q1 {enc['matches']}, hybrid {hyb['matches']}, q11 "
+          f"{q11['matches']}, texture {tex_packs['match launches']}) "
+          f"[{gpu}]", flush=True)
+    del tex_packs, q1_in, q11_in
     for got in [enc["launches"], hyb["launches"], q11["launches"]] \
             + tex_launches:
         for k in fused:
@@ -2260,7 +2507,12 @@ def main() -> int:
          "replaces": "brotlig_tpu/ops/parse_dp.py:234", **q11["dp"]},
         {"name": "pack", "route": "cuda", "source": src + "pack.cu",
          "replaces": "brotlig_tpu/ops/encode_pack.py:985",
-         "launches": pack_launches, **k_pack["q1"]}]
+         "launches": pack_launches, **k_pack["q1"]},
+        {"name": "match", "route": "cuda", "source": src + "match.cu",
+         "replaces": "brotlig_tpu/ops/encode.py:142",
+         "launches": match_launches_main,
+         **{**k_match["q1"], "max_abs_err": max(
+             r["max_abs_err"] for r in k_match.values())}}]
     print(f"[smoke] whole run {time.perf_counter() - t_start:.1f} s, "
           "builds included", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -248,7 +248,8 @@ def test_decode_stream_two_phase_cuda(cuda_dev, cw, monkeypatch):
     assert decode(blob, device="cuda", variant="two_phase",
                   sweep_cw=cw) == data
     assert _kernels.LAUNCHES == {"tables": 1, "decode": 0, "phase_a": 1,
-                                 "sweep": 1, "dp_parse": 0, "pack": 0}
+                                 "sweep": 1, "dp_parse": 0, "pack": 0,
+                                 "match": 0}
     assert _kernels.SWEEP_LAUNCHES[cw] == 1
 
 
@@ -388,10 +389,25 @@ def test_find_commands_card_equals_cpu(cuda_dev, fast):
     max_cmds = S // 4 + 16 if fast else S // 2 + 2
     want = find_commands(torch.from_numpy(arr), torch.from_numpy(sizes),
                          max_cmds, fast)
+    _kernels.reset_launches()
     got = find_commands(torch.from_numpy(arr).to(cuda_dev),
                         torch.from_numpy(sizes).to(cuda_dev), max_cmds, fast)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+    assert _kernels.LAUNCHES["match"] == 6   # the kernels, not torch ops
+
+
+def test_find_candidates_card_equals_cpu(cuda_dev):
+    from brotlig_tpu_torch.ops.encode import find_candidates
+    _, arr, sizes = encode_rows()
+    want = find_candidates(torch.from_numpy(arr), torch.from_numpy(sizes),
+                           512)
+    _kernels.reset_launches()
+    got = find_candidates(torch.from_numpy(arr).to(cuda_dev),
+                          torch.from_numpy(sizes).to(cuda_dev), 512)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert _kernels.LAUNCHES["match"] == 6
 
 
 def test_encode_pages_device_card_equals_cpu(cuda_dev):
