@@ -37,13 +37,13 @@ CSRC = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libbrotlig_kernels.so")
 SOURCES = ("tables.cu", "decode.cu", "phase_a.cu", "sweep.cu",
-           "dp_parse.cu", "pack.cu", "match.cu")
-HEADERS = ("lane_ops.cuh", "page_round.cuh")
+           "dp_parse.cu", "pack.cu", "match.cu", "cost_model.cu")
+HEADERS = ("lane_ops.cuh", "page_round.cuh", "page_tables.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"tables": 0, "decode": 0, "phase_a": 0, "sweep": 0,
-            "dp_parse": 0, "pack": 0, "match": 0}
+            "dp_parse": 0, "pack": 0, "match": 0, "cost": 0}
 SWEEP_LAUNCHES = {128: 0, 512: 0, 1024: 0, 2048: 0}
 
 _lock = threading.Lock()
@@ -163,6 +163,18 @@ def library():
         lib.blg_match_finish.restype = i32
         lib.blg_match_finish.argtypes = [vp, i32, i32, i32, i32, vp, vp, vp,
                                          vp, vp, vp, vp, vp, vp, vp]
+        lib.blg_cost_scratch_ints.restype = ctypes.c_longlong
+        lib.blg_cost_scratch_ints.argtypes = [i32, i32]
+        lib.blg_cost_smem.restype = ctypes.c_longlong
+        lib.blg_cost_smem.argtypes = [i32, i32]
+        lib.blg_cost_tables.restype = i32
+        lib.blg_cost_tables.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32,
+                                        vp, vp, vp, vp]
+        lib.blg_cost_unseen_check.restype = i32
+        lib.blg_cost_unseen_check.argtypes = [i32, ctypes.c_float, vp, vp]
+        lib.blg_cost_positions.restype = i32
+        lib.blg_cost_positions.argtypes = [vp, vp, vp, vp, i32, i32, i32, vp,
+                                           vp, vp, vp, vp, vp]
         _lib = lib
         return _lib
 

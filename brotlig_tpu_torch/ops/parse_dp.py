@@ -10,7 +10,12 @@ a previous parse. Here, per batch of pages:
   (npostfix, ndirect) and the distance ring each byte inherits, priced in
   half-bits: each byte as a literal, each joint (insert code, copy code)
   command symbol in both distance forms, and each candidate's distance
-  (with the four ring distances probed as extra candidates);
+  (with the four ring distances probed as extra candidates). On a CUDA
+  tensor it launches the kernels (csrc/cost_model.cu through
+  ops/cost_kernel.py: a block a page for the tables, sharing the
+  serializer kernel's statistics phases, then blocks of positions); on a
+  CPU tensor it runs `build_cost_model_plain`, the JAX module's jitted
+  function as torch ops;
 * `dp_parse`: dp[p], the least half-bits to encode the first p bytes, by
   blocks of B positions over a W-deep window of sources, R rounds of match
   relaxes per block; the literal chains of a block collapse into one
@@ -37,7 +42,7 @@ import numpy as np
 import torch
 
 from . import arith_lut
-from . import dp_kernel
+from . import cost_kernel, dp_kernel
 from .encode import _match_len, _quads, find_candidates, find_commands
 from .encode_pack import (A_CMD, A_DST, A_LIT, _choose_table,
                           _encode_distance_vec, _ring_before,
@@ -89,8 +94,22 @@ def _half_bits(bits: torch.Tensor) -> torch.Tensor:
 
 def build_cost_model(pages, in_sizes, ins, cpy, dist, ncmds, base_len,
                      base_dist):
-    """Per-page DP cost tables and candidate set from a previous parse, on
-    the pages' device.
+    """Per-page DP cost tables and candidate set from a previous parse
+    (see build_cost_model_plain for the arguments and outputs). On a CUDA
+    tensor it launches the kernels (csrc/cost_model.cu through
+    ops/cost_kernel.py), on a CPU tensor it runs the plain version."""
+    args = (pages, in_sizes, ins, cpy, dist, ncmds, base_len, base_dist)
+    if pages.is_cuda:
+        return cost_kernel.build_cost_model_cuda(*args)
+    if pages.device.type == "cpu":
+        return build_cost_model_plain(*args)
+    raise ValueError(f"no build_cost_model route for device {pages.device}")
+
+
+def build_cost_model_plain(pages, in_sizes, ins, cpy, dist, ncmds, base_len,
+                           base_dist):
+    """Plain torch version of the cost-model kernels, on any device:
+    per-page DP cost tables and candidate set from a previous parse.
 
     pages: uint8 [P, S]; in_sizes, ncmds: [P]; ins/cpy/dist: [P, N]
     commands; base_len/base_dist: [P, S, 8] from find_candidates. Each

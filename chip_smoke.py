@@ -474,7 +474,7 @@ def want_launches(cases, runs) -> tuple:
     every kernel of its route launches once a batch: (counts, sweep
     counts by width)."""
     counts = {"tables": 0, "decode": 0, "phase_a": 0, "sweep": 0,
-              "dp_parse": 0, "pack": 0, "match": 0}
+              "dp_parse": 0, "pack": 0, "match": 0, "cost": 0}
     by_cw = dict.fromkeys(SWEEP_CWS, 0)
     for name, opts in runs:
         nb = batches_of(cases[name][1])
@@ -920,7 +920,8 @@ def sharded_phase(data: bytes, blob: bytes, gpu) -> dict:
             raise AssertionError(f"decode_stream_sharded over {name} "
                                  "differs from the input")
         if counts != {"tables": want, "decode": want, "phase_a": 0,
-                      "sweep": 0, "dp_parse": 0, "pack": 0, "match": 0}:
+                      "sweep": 0, "dp_parse": 0, "pack": 0, "match": 0,
+                      "cost": 0}:
             raise AssertionError(f"decode_stream_sharded over {name} "
                                  f"launched {counts}, want {want} each")
         for k in total:
@@ -972,7 +973,7 @@ def dryrun_phase(gpu) -> dict:
     # then find_commands once a device
     match = MK.LAUNCHES_PER_CALL * (1 + n)
     if counts != {"tables": want, "decode": want, "phase_a": 0, "sweep": 0,
-                  "dp_parse": 0, "pack": 1, "match": match}:
+                  "dp_parse": 0, "pack": 1, "match": match, "cost": 0}:
         raise AssertionError(f"dryrun_multichip({n}) launched {counts}, "
                              f"want {want} each, one pack and {match} "
                              "matcher launches")
@@ -1086,10 +1087,10 @@ def decode_on_card(blob: bytes, data: bytes, what: str) -> dict:
     for route, opts, want in (
             ("fused", {},
              {"tables": nb, "decode": nb, "phase_a": 0, "sweep": 0,
-              "dp_parse": 0, "pack": 0, "match": 0}),
+              "dp_parse": 0, "pack": 0, "match": 0, "cost": 0}),
             ("two_phase", {"variant": "two_phase", "sweep_cw": 1024},
              {"tables": nb, "decode": 0, "phase_a": nb, "sweep": nb,
-              "dp_parse": 0, "pack": 0, "match": 0})):
+              "dp_parse": 0, "pack": 0, "match": 0, "cost": 0})):
         _kernels.reset_launches()
         if brotlig_tpu_torch.decode(blob, device="cuda", **opts) != data:
             raise AssertionError(f"{what}: decode on the card {opts} "
@@ -1295,22 +1296,31 @@ def texture_encode_phase(name: str, tex: bytes, params, gpu) -> dict:
     Returns (the decode launches, the DP inputs of the q11 route's first
     batch and iteration: litq, cand_len, dpackq, jointEq, jointLq, and
     the serializer's first-batch arguments: the q1 route's greedy pack and
-    the q11 route's DP pack, with the pack kernel launches of both, and
-    the matcher kernel launches of all three routes)."""
+    the q11 route's DP pack, with the pack kernel launches of both, the
+    matcher kernel launches of all three routes, and the q11 route's
+    first cost-model arguments and cost kernel launches, iterations x
+    batches x 2)."""
     import torch
     import brotlig_tpu_torch
     from brotlig_tpu_torch import _kernels
-    from brotlig_tpu_torch.ops import encode_pack, match_kernel, parse_dp
+    from brotlig_tpu_torch.ops import (cost_kernel, encode_pack,
+                                       match_kernel, parse_dp)
     iters = int(os.environ.get("BLG_DP_ITERS", "3"))
     nbatch = -(-len(tex) // PAGE // 64)
-    launches, first, packs = [], [], {}
+    launches, first, packs, model_in = [], [], {}, []
     dp_parse = parse_dp.dp_parse
+    build_cost_model = parse_dp.build_cost_model
     pack_partitioned = encode_pack.pack_partitioned
 
     def recorded(*args):
         if not first:
             first.extend(args[:5])
         return dp_parse(*args)
+
+    def model_recorded(*args):
+        if not model_in:
+            model_in.extend(args)
+        return build_cost_model(*args)
 
     def pack_recorded(*args):
         calls.append(args)
@@ -1322,6 +1332,7 @@ def texture_encode_phase(name: str, tex: bytes, params, gpu) -> dict:
         _kernels.reset_launches()
         t0 = time.perf_counter()
         parse_dp.dp_parse = recorded
+        parse_dp.build_cost_model = model_recorded
         encode_pack.pack_partitioned = pack_recorded
         try:
             blob = brotlig_tpu_torch.encode(tex, dc_params=params,
@@ -1329,34 +1340,39 @@ def texture_encode_phase(name: str, tex: bytes, params, gpu) -> dict:
                                             device="cuda")
         finally:
             parse_dp.dp_parse = dp_parse
+            parse_dp.build_cost_model = build_cost_model
             encode_pack.pack_partitioned = pack_partitioned
         ms = (time.perf_counter() - t0) * 1e3
         peak = torch.cuda.max_memory_allocated()
         dp = _kernels.LAUNCHES["dp_parse"]
         pk = _kernels.LAUNCHES["pack"]
         mt = _kernels.LAUNCHES["match"]
+        ct = _kernels.LAUNCHES["cost"]
         full = backend == "full"
         want = iters * nbatch if (backend, quality) == ("full", 11) else 0
+        want_ct = want * cost_kernel.LAUNCHES_PER_CALL
         want_pk = full * nbatch * (1 + (quality >= 10))
         # the greedy cover a batch, and the DP's candidates at q11
         want_mt = (match_kernel.LAUNCHES_PER_CALL * nbatch
                    * (1 + (full and quality >= 10)))
-        if dp != want or pk != want_pk or mt != want_mt:
+        if dp != want or pk != want_pk or mt != want_mt or ct != want_ct:
             raise AssertionError(f"{name}, {backend} q{quality}: {dp} DP, "
-                                 f"{pk} pack and {mt} matcher kernel "
-                                 f"launches, want {want}, {want_pk} and "
-                                 f"{want_mt}")
+                                 f"{pk} pack, {mt} matcher and {ct} cost "
+                                 f"kernel launches, want {want}, {want_pk}, "
+                                 f"{want_mt} and {want_ct}")
         packs["match launches"] = packs.get("match launches", 0) + mt
+        packs["cost launches"] = packs.get("cost launches", 0) + ct
         if full:    # the first batch's pack: greedy at q1, the DP's at q11
             packs[f"q{quality}"] = calls[quality >= 10]
             packs["launches"] = packs.get("launches", 0) + pk
         print(f"[smoke] {name}, {backend} encode (q{quality}) on the card: "
               f"{ms:.1f} ms, ratio {len(tex) / len(blob):.4f}, peak "
               f"{peak / 2**20:.1f} MiB allocated, DP kernel launches {dp}, "
-              f"pack kernel launches {pk}, matcher kernel launches {mt} "
-              f"[{gpu}]", flush=True)
+              f"pack kernel launches {pk}, matcher kernel launches {mt}, "
+              f"cost kernel launches {ct} [{gpu}]", flush=True)
         launches.append(decode_on_card(blob, tex, f"{name}, {backend} "
                                        f"encode (q{quality})"))
+    packs["cost in"] = tuple(model_in)
     return launches, tuple(first), packs
 
 
@@ -1404,6 +1420,17 @@ EAGER = {"q1 serializer": 180.203, "q1 total": 226.768, "q1 kernels": 16768,
          "q1 kernels, eager matcher": 3369, "q11 greedy matcher": 126.607,
          "q11 find_candidates": 135.063, "q11 entry, eager matcher": 578.175,
          "q11 kernels, eager matcher": 28983}
+
+
+# the q11 cost model's stage (three iterations) when it ran as eager torch
+# ops, and the q11 entry point's CUDA kernels a call then (this script's
+# q11 phase, its last run before the cost kernels, on an NVIDIA H100 80GB
+# HBM3, 700.00 W; PERF.md section 5)
+EAGER_COST_MODEL_MS = 160.150
+EAGER_Q11_KERNELS = 9505
+# the serializer kernel's raw launch on the q1 batch before its statistics
+# phases moved into csrc/page_tables.cuh (the same card; PERF.md section 6)
+PACK_BEFORE_SHARED_MS = {"q1": 0.3069}
 
 
 # the kernel's first design (one block a page whose bit packing ran in
@@ -1546,15 +1573,18 @@ def pack_phase(batches: dict, gpu) -> dict:
             ("words", BRANCH_WORDS), ("keys in the scratch", BRANCH_KEYS),
             ("literal queue in shared memory", BRANCH_LQ))}
         smem = _kernels.library().blg_pack_smem(ins.shape[1], page, page)
+        before = (f"; before the shared statistics phases: "
+                  f"{PACK_BEFORE_SHARED_MS[name]} ms"
+                  if name in PACK_BEFORE_SHARED_MS else "")
         print(f"[smoke] pack kernel == plain (tolerance 0, bytes and sizes) "
               f"on the {name} batch ({pages.shape[0]} pages, "
               f"{int(ncmds.sum())} commands, {raw} stored raw); kernel "
               f"{ms:.4f} ms (mean of {REPS} raw launches, "
               f"{ms / pages.shape[0]:.4f} ms a page; first design: "
-              f"{PACK_FIRST[name]} ms), plain {plain_ms:.1f} ms (one run on "
-              f"the card), bound {res[name]['bound_ms']:.5f} ms by bytes; "
-              f"dynamic shared memory {smem} B a block; pages by size case "
-              f"{cases} [{gpu}]", flush=True)
+              f"{PACK_FIRST[name]} ms{before}), plain {plain_ms:.1f} ms (one "
+              f"run on the card), bound {res[name]['bound_ms']:.5f} ms by "
+              f"bytes; dynamic shared memory {smem} B a block; pages by size "
+              f"case {cases} [{gpu}]", flush=True)
         print(f"[smoke] pack kernel phases on the {name} batch (thread 0's "
               f"clock, kcycles a page: mean over the pages / the slowest "
               f"page, row {slow}, {per_page[slow] / 1e3:.1f} kcycles in "
@@ -1734,6 +1764,163 @@ def match_phase(batches: dict, gpu) -> dict:
               f"operations) [{gpu}]", flush=True)
     return res
 
+# ---------------------------------------------------------------------------
+# The q11 cost model's kernels (csrc/cost_model.cu) against their plain
+# version
+# ---------------------------------------------------------------------------
+
+# operations a candidate slot needs at least (its distance symbol and extra
+# bits, a table read, the ring compares, the min and the pack), and a ring
+# probe a byte it compares
+OPS_PER_SLOT = 12
+OPS_PER_PROBE_BYTE = 3
+
+
+def cost_kernel_report() -> str:
+    """ptxas's registers, stack and spills of the cost model's two kernels,
+    from the build log."""
+    from brotlig_tpu_torch import _kernels
+    found, name = [], None
+    for line in _kernels.BUILD_LOG.splitlines():
+        if "Compiling entry function" in line:
+            name = next((k for k in ("tables", "positions")
+                         if f"cost_{k}_kernel" in line), None)
+        elif name and ("registers" in line or "spill" in line):
+            found.append(f"{name}: {line.split(':', 1)[-1].strip()}")
+    return "; ".join(found) or "not in the build log"
+
+
+def cost_bytes(args) -> int:
+    """The bytes the cost model must move: each page, its size and command
+    count, its commands' three fields and its base candidates read once;
+    litq, the two joint tables and the three [P, S, 12] outputs written
+    once."""
+    pages, ncmds = args[0], args[5]
+    P, S = pages.shape
+    return (P * S + 8 * P + 12 * int(ncmds.sum()) + 2 * 4 * P * S * 8
+            + 4 * P * S + 2 * 4 * P * 576 + 3 * 4 * P * S * 12)
+
+
+def cost_launches(args) -> tuple:
+    """The cost model's two raw launches on build_cost_model's arguments
+    (operands converted and outputs and scratch allocated once): (the
+    table kernel, the position kernel)."""
+    import torch
+    from brotlig_tpu_torch import _kernels
+    pages, in_sizes, ins, cpy, dist, ncmds, base_len, base_dist = args
+    P, S = pages.shape
+    N = ins.shape[1]
+    dev = pages.device
+    lib = _kernels.library()
+    i32 = [x.to(torch.int32).contiguous()
+           for x in (in_sizes, ins, cpy, dist, ncmds)]
+    base = [x.to(torch.int32).contiguous() for x in (base_len, base_dist)]
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+    scratch = empty(P, lib.blg_cost_scratch_ints(N, S))
+    pages = pages.contiguous()
+    tables = raw_launch(lib.blg_cost_tables,
+                        [pages, *i32, P, S, N, empty(P, 576), empty(P, 576),
+                         scratch], dev)
+    positions = raw_launch(lib.blg_cost_positions,
+                           [pages, i32[0], *base, P, S, N, scratch,
+                            empty(P, S), *(empty(P, S, 12) for _ in range(3))],
+                           dev)
+    return tables, positions
+
+
+def cost_batch(data: bytes, page: int, npages: int, dev) -> tuple:
+    """build_cost_model's arguments on npages corpus pages of `page` bytes:
+    the exact-tier greedy commands and the candidates (W 512), from the
+    matcher's kernels."""
+    import numpy as np
+    import torch
+    from brotlig_tpu_torch.ops import parse_dp
+    from brotlig_tpu_torch.ops.encode import find_candidates, find_commands
+    arr = np.frombuffer(data[:npages * page], np.uint8).reshape(npages, page)
+    pages = torch.from_numpy(arr.copy()).to(dev)
+    sizes = torch.full((npages,), page, dtype=torch.int64, device=dev)
+    return (pages, sizes, *find_commands(pages, sizes, page // 4 + 16),
+            *find_candidates(pages, sizes, parse_dp.WINDOW))
+
+
+def cost_phase(batches: dict, gpu) -> dict:
+    """The cost model's kernels held to their plain version on the card
+    (tolerance 0, all six outputs) on each batch of build_cost_model
+    arguments, the two raw launches timed by CUDA events (the table kernel
+    alone, then both: the difference is the position kernel's) beside the
+    plain version's one run on the card and the bound (bytes, and the
+    operations of the slots and of the probes' compared bytes). Returns
+    the measures by batch."""
+    import torch
+    from brotlig_tpu_torch import _kernels
+    from brotlig_tpu_torch.ops import cost_kernel as CK
+    from brotlig_tpu_torch.ops import parse_dp
+    lib = _kernels.library()
+    smem = {k: lib.blg_cost_smem(k // 4 + 16, k) for k in
+            (32768, 65536, 131072)}
+    print(f"[smoke] cost kernels build: {cost_kernel_report()}; the table "
+          f"kernel's dynamic shared memory by page size {smem} B a block "
+          f"[{gpu}]", flush=True)
+    res = {}
+    for name, args in batches.items():
+        pages, ncmds = args[0], args[5]
+        P, S = pages.shape
+        got = CK.build_cost_model_cuda(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = parse_dp.build_cost_model_plain(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max_abs_err(got, want)
+        if err != 0:
+            bad = [k for k, g, w in zip(
+                ("litq", "jointEq", "jointLq", "cand_len", "cand_dist",
+                 "dpackq"), got, want) if not torch.equal(g, w)]
+            raise AssertionError(f"cost kernels disagree with plain on the "
+                                 f"{name} batch: {err} in {bad}")
+        tables, positions = cost_launches(args)
+        t_tab = time_ms(tables, REPS)
+        ms = time_ms(lambda: (tables(), positions()), REPS)
+        nbytes = cost_bytes(args)
+        probed = int(got[3][..., CK.BASE_SLOTS:].long().sum())
+        ops = (P * S * (CK.SLOTS * OPS_PER_SLOT + 4 * OPS_PER_PROBE_BYTE)
+               + OPS_PER_PROBE_BYTE * probed)
+        res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     **bound(nbytes, ops)}
+        print(f"[smoke] cost kernels == plain (tolerance 0, six outputs) on "
+              f"the {name} batch ({P} x {S // 1024} KiB pages, "
+              f"{int(ncmds.sum())} commands); kernels {ms:.4f} ms (mean of "
+              f"{REPS} runs of the two raw launches: tables {t_tab:.4f}, "
+              f"positions {ms - t_tab:.4f}), plain {plain_ms:.1f} ms (one "
+              f"run on the card), bound {res[name]['bound_ms']:.5f} ms by "
+              f"{res[name]['bound_by']} ({nbytes} B, {ops} operations) "
+              f"[{gpu}]", flush=True)
+    return res
+
+
+def kernel_names(fn) -> dict:
+    """The CUDA kernels one call of fn runs on the card, counted by name
+    (torch.profiler; a name is its function's, without namespaces,
+    template arguments or parameters)."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.name.startswith(("Memcpy", "Memset"))):
+            name = e.name.replace("void ", "").replace(
+                "(anonymous namespace)::", "")
+            short = re.split(r"[(<\[]", name)[0].split("::")[-1]
+            names[short] = names.get(short, 0) + 1
+    return dict(sorted(names.items(), key=lambda kv: -kv[1]))
+
 
 # ---------------------------------------------------------------------------
 # Encode at q11 on the card: the windowed-DP parse and its kernel
@@ -1741,7 +1928,8 @@ def match_phase(batches: dict, gpu) -> dict:
 
 Q11_PAGES = 8        # bench.py's encode_ratio_q11 cell (bench.py:612-648):
                      # 8 pages at stride len(pages) // 8
-MODEL_CHECK = 2      # pages whose candidates and cost model the CPU repeats
+MODEL_CHECK = Q11_PAGES  # pages whose candidates and cost model the CPU
+                         # repeats
 # operations a DP relax edge needs at least (two table reads, four adds,
 # two mins, the pack, the min into its target), and a closure a cell
 OPS_PER_EDGE = 10
@@ -1808,7 +1996,7 @@ def q11_steps(arr, sizes, dev, iters: int):
     the stage breakdown only, printed beside the entry point's own total
     so that a gap between the two shows. Returns (blobs, ms by stage, the
     first iteration's DP inputs, the two packs' arguments: greedy and
-    DP)."""
+    DP, each iteration's cost-model arguments)."""
     import numpy as np
     import torch
     from brotlig_tpu_torch.ops import parse_dp
@@ -1834,9 +2022,10 @@ def q11_steps(arr, sizes, dev, iters: int):
     mark("greedy pack")
     cand = find_candidates(pages, in_sizes, parse_dp.WINDOW)
     mark("find_candidates")
-    cmds, first = greedy, None
+    cmds, first, model_in = greedy, None, []
     sizes_np = in_sizes.cpu().numpy()
     for _ in range(iters):
+        model_in.append((pages, in_sizes, *cmds, *cand))
         mark(None)
         model = parse_dp.build_cost_model(pages, in_sizes, *cmds, *cand)
         mark("cost model")
@@ -1876,7 +2065,7 @@ def q11_steps(arr, sizes, dev, iters: int):
     ms["total"] = total
     packs = {"greedy": (pages, in_sizes, PAGE, max_cmds, *greedy, flags),
              "DP": (pages, in_sizes, PAGE, max_cmds, *cmds, flags)}
-    return blobs, ms, first, packs
+    return blobs, ms, first, packs, model_in
 
 
 # the DP kernel's first design (one thread block a page, every block 16
@@ -1913,6 +2102,7 @@ def q11_phase(data: bytes, dev, gpu, tex_dp) -> dict:
     import numpy as np
     import torch
     from brotlig_tpu_torch import _kernels, native
+    from brotlig_tpu_torch.ops import cost_kernel as CK
     from brotlig_tpu_torch.ops import match_kernel as MK
     from brotlig_tpu_torch.ops import parse_dp
     from brotlig_tpu_torch.ops.encode import find_candidates, find_commands
@@ -1926,28 +2116,40 @@ def q11_phase(data: bytes, dev, gpu, tex_dp) -> dict:
     iters = int(os.environ.get("BLG_DP_ITERS", "3"))
     B, W, R = parse_dp.BLOCK, parse_dp.WINDOW, parse_dp.ROUNDS
 
-    # the float32 unseen-symbol cost: the card's log2 against the CPU's
+    # the float32 unseen-symbol cost: the card's log2 against the CPU's,
+    # in torch and in the cost model's kernels
     total = torch.arange(1, 1 << 18)
     for pad in (2.0, 4.0):
+        want = torch.round(2 * parse_dp.unseen_bits(total, pad))
         if not torch.equal(
                 torch.round(2 * parse_dp.unseen_bits(total.to(dev), pad))
-                .cpu(), torch.round(2 * parse_dp.unseen_bits(total, pad))):
+                .cpu(), want):
             raise AssertionError(f"unseen cost (pad {pad}): the card's "
                                  "float32 log2 differs from the CPU's")
+        if not torch.equal(CK.unseen_half_bits_cuda(total.numel(), pad, dev)
+                           .cpu(), want.to(torch.int32)):
+            raise AssertionError(f"unseen cost (pad {pad}): the cost "
+                                 "kernels' half-bits differ from the CPU's")
 
     # ---- the main path: encode_pages_device itself, launches counted ----
     plain_calls = []
     plain = parse_dp.dp_parse_plain
+    plain_model = parse_dp.build_cost_model_plain
 
     def counted(*args, **kwargs):
         plain_calls.append(1)
         return plain(*args, **kwargs)
+
+    def counted_model(*args, **kwargs):
+        plain_calls.append(1)
+        return plain_model(*args, **kwargs)
 
     def entry():
         return encode_pages_device(arr, sizes, PAGE, quality=11,
                                    device="cuda")
     nruns = ENC_REPS + 1                 # the first run is the warm-up
     parse_dp.dp_parse_plain = counted
+    parse_dp.build_cost_model_plain = counted_model
     try:
         _kernels.reset_launches()
         times, outs = [], []
@@ -1962,18 +2164,22 @@ def q11_phase(data: bytes, dev, gpu, tex_dp) -> dict:
         outs.append(entry())
         peak = torch.cuda.max_memory_allocated(dev)
         work = device_work(entry)
+        left = kernel_names(entry)
         # the stage breakdown, from chip_smoke's copy of the route's steps
         runs = [q11_steps(arr, sizes, dev, iters) for _ in range(ENC_REPS)]
     finally:
         parse_dp.dp_parse_plain = plain
+        parse_dp.build_cost_model_plain = plain_model
     launches = counts["dp_parse"]
-    # a run: the greedy cover and the DP's candidates, six launches each
+    # a run: the greedy cover and the DP's candidates, six launches each;
+    # the cost model, two launches an iteration
     want = {**dict.fromkeys(counts, 0), "dp_parse": iters * nruns,
-            "pack": 2 * nruns, "match": 2 * MK.LAUNCHES_PER_CALL * nruns}
+            "pack": 2 * nruns, "match": 2 * MK.LAUNCHES_PER_CALL * nruns,
+            "cost": iters * CK.LAUNCHES_PER_CALL * nruns}
     if counts != want or plain_calls:
         raise AssertionError(f"q11: encode_pages_device launched {counts} "
                              f"(want {want}) and {len(plain_calls)} plain "
-                             "dp_parse calls (want 0)")
+                             "dp_parse or build_cost_model calls (want 0)")
     blobs = outs[0]
     if any(o != blobs for o in outs):
         raise AssertionError("q11 encode is not deterministic")
@@ -2026,6 +2232,15 @@ def q11_phase(data: bytes, dev, gpu, tex_dp) -> dict:
           f"{nbytes / sum(map(len, q1)):.4f} (q11/q1 "
           f"{sum(map(len, q1)) / sum(map(len, blobs)):.4f}); native q11 "
           f"{nbytes / len(native_blob):.4f} [{gpu}]", flush=True)
+    print(f"[smoke] full-device q11 cost model (csrc/cost_model.cu) beside "
+          f"its eager run (NVIDIA H100 80GB HBM3, 700.00 W): stage "
+          f"{med['cost model']:.3f} ms for {iters} iterations (eager: "
+          f"{EAGER_COST_MODEL_MS}); CUDA kernels a call "
+          f"{work['kernels'] or 'not measured'} (eager: {EAGER_Q11_KERNELS})"
+          f"; cost kernel launches {counts['cost']} ({nruns} runs x {iters} "
+          f"iterations x {CK.LAUNCHES_PER_CALL}), plain build_cost_model "
+          f"calls 0; the kernels of a call by name: {json.dumps(left)} "
+          f"[{gpu}]", flush=True)
     print("[smoke] full-device q11 stage breakdown runs (ms): " + json.dumps(
         [{k: round(v, 3) for k, v in r[1].items()} for r in runs])
         + f" [{gpu}]", flush=True)
@@ -2095,14 +2310,16 @@ def q11_phase(data: bytes, dev, gpu, tex_dp) -> dict:
     if err != 0:
         raise AssertionError(f"find_candidates / build_cost_model: the card "
                              f"differs from the CPU run: {err}")
-    print(f"[smoke] find_candidates and build_cost_model on {MODEL_CHECK} "
-          f"pages == the CPU run (tolerance 0); unseen cost on the card == "
-          f"the CPU's for every total in [1, 2^18)", flush=True)
+    print(f"[smoke] find_candidates and build_cost_model (kernels) on "
+          f"{MODEL_CHECK} pages == the CPU run (tolerance 0); unseen cost on "
+          f"the card (torch and the cost kernels) == the CPU's for every "
+          f"total in [1, 2^18)", flush=True)
     return {"launches": decode_on_card(container_of(blobs, PAGE),
                                        arr.tobytes(),
                                        "full-device q11 container"),
             "dp": {**k_dp, "launches": launches}, "packs": counts["pack"],
-            "matches": counts["match"], "pack_in": runs[0][3]}
+            "matches": counts["match"], "pack_in": runs[0][3],
+            "costs": counts["cost"], "cost_in": runs[0][4]}
 
 
 def main() -> int:
@@ -2300,7 +2517,7 @@ def main() -> int:
           f"run equal to the input; launches {counts} (once a batch: "
           f"{nb})", flush=True)
     if counts != {"tables": nb, "decode": nb, "phase_a": 0, "sweep": 0,
-                  "dp_parse": 0, "pack": 0, "match": 0}:
+                  "dp_parse": 0, "pack": 0, "match": 0, "cost": 0}:
         raise AssertionError("the repeated decodes did not launch their "
                              "kernels once a batch")
     pipeline_never_syncs(blob64, dev)
@@ -2328,7 +2545,7 @@ def main() -> int:
             raise AssertionError(f"pooled decode {r} differs from the "
                                  "inputs")
         if pool != {"tables": nb, "decode": nb, "phase_a": 0, "sweep": 0,
-                    "dp_parse": 0, "pack": 0, "match": 0}:
+                    "dp_parse": 0, "pack": 0, "match": 0, "cost": 0}:
             raise AssertionError(f"pooled decode launched {pool}, want "
                                  f"{nb} batches")
     torch.cuda.synchronize()
@@ -2478,7 +2695,19 @@ def main() -> int:
           f"(q1 {enc['matches']}, hybrid {hyb['matches']}, q11 "
           f"{q11['matches']}, texture {tex_packs['match launches']}) "
           f"[{gpu}]", flush=True)
-    del tex_packs, q1_in, q11_in
+    t1 = time.perf_counter()
+    cost_in = q11.pop("cost_in")
+    k_cost = cost_phase({
+        **{f"q11 iteration {i + 1}": a for i, a in enumerate(cost_in)},
+        "texture q11": tex_packs["cost in"],
+        "32 KiB": cost_batch(data16, 32768, 8, dev),
+        "128 KiB": cost_batch(data16, 131072, 4, dev)}, gpu)
+    cost_launches_main = q11["costs"] + tex_packs["cost launches"]
+    print(f"[smoke] cost phase {time.perf_counter() - t1:.1f} s; cost "
+          f"kernel launches on the encode main paths {cost_launches_main} "
+          f"(q11 {q11['costs']}, texture {tex_packs['cost launches']}) "
+          f"[{gpu}]", flush=True)
+    del tex_packs, q1_in, q11_in, cost_in
     for got in [enc["launches"], hyb["launches"], q11["launches"]] \
             + tex_launches:
         for k in fused:
@@ -2512,7 +2741,12 @@ def main() -> int:
          "replaces": "brotlig_tpu/ops/encode.py:142",
          "launches": match_launches_main,
          **{**k_match["q1"], "max_abs_err": max(
-             r["max_abs_err"] for r in k_match.values())}}]
+             r["max_abs_err"] for r in k_match.values())}},
+        {"name": "cost", "route": "cuda", "source": src + "cost_model.cu",
+         "replaces": "brotlig_tpu/ops/parse_dp.py:71",
+         "launches": cost_launches_main,
+         **{**k_cost["q11 iteration 1"], "max_abs_err": max(
+             r["max_abs_err"] for r in k_cost.values())}}]
     print(f"[smoke] whole run {time.perf_counter() - t_start:.1f} s, "
           "builds included", flush=True)
     print(json.dumps({"kernels": kernels}))
