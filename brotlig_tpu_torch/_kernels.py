@@ -145,24 +145,23 @@ def library():
                    lib.blg_pack_smem):
             fn.restype = ctypes.c_longlong
             fn.argtypes = [i32, i32, i32]
-        lib.blg_match_smem.restype = ctypes.c_longlong
-        lib.blg_match_smem.argtypes = [i32, i32]
-        lib.blg_match_tiles.restype = i32
-        lib.blg_match_tiles.argtypes = [i32]
-        lib.blg_match_nodes_ints.restype = ctypes.c_longlong
-        lib.blg_match_nodes_ints.argtypes = [i32]
-        lib.blg_match_hist.restype = i32
-        lib.blg_match_hist.argtypes = [vp, vp, i32, i32, i32, i32, vp, vp,
-                                       vp]
-        lib.blg_match_scatter.restype = i32
-        lib.blg_match_scatter.argtypes = [vp, vp, i32, i32, i32, i32, vp, vp,
-                                          vp, vp, vp]
-        lib.blg_match_probe.restype = i32
-        lib.blg_match_probe.argtypes = [vp, vp, i32, i32, i32, i32, i32, vp,
-                                        vp, vp, vp, vp, vp, vp]
+        for fn in (lib.blg_match_sort_probe_smem, lib.blg_match_finish_smem):
+            fn.restype = ctypes.c_longlong
+        lib.blg_match_sort_probe_smem.argtypes = [i32, i32]
+        lib.blg_match_finish_smem.argtypes = [i32]
+        for fn in (lib.blg_match_cluster_size, lib.blg_match_finish_parts):
+            fn.restype = i32
+            fn.argtypes = [i32, i32, i32]
+        lib.blg_match_max_clusters.restype = i32
+        lib.blg_match_max_clusters.argtypes = [i32, i32]
+        lib.blg_match_scratch_ints.restype = ctypes.c_longlong
+        lib.blg_match_scratch_ints.argtypes = [i32, i32, i32]
+        lib.blg_match_sort_probe.restype = i32
+        lib.blg_match_sort_probe.argtypes = [vp, vp, i32, i32, i32, i32, vp,
+                                             vp]
         lib.blg_match_finish.restype = i32
-        lib.blg_match_finish.argtypes = [vp, i32, i32, i32, i32, vp, vp, vp,
-                                         vp, vp, vp, vp, vp, vp, vp]
+        lib.blg_match_finish.argtypes = [vp, vp, i32, i32, i32, i32, i32,
+                                         i32, vp, vp, vp, vp, vp, vp, vp, vp]
         lib.blg_cost_scratch_ints.restype = ctypes.c_longlong
         lib.blg_cost_scratch_ints.argtypes = [i32, i32]
         lib.blg_cost_smem.restype = ctypes.c_longlong

@@ -8,62 +8,75 @@
 // eager torch ops, about 3,400 launches a q1 batch); wrapper:
 // ops/match_kernel.py. The output equals the plain version's, int for int.
 //
-// Four kernels, six launches a call:
-//   hist, scatter  the two passes (low key byte, then high) of a stable LSD
-//           radix sort of each key family's (key, position) pairs, one
-//           block a (page, family, tile of 4,096 pairs): hist counts the
-//           tile's digits; scatter places each pair (the digit's start
-//           from every tile's counts, the earlier tiles' pairs of that
-//           digit, the earlier pairs of its tile, equal digits of a warp's
-//           row ranked with one ballot a digit bit), reorders the tile by
-//           digit in shared memory and writes it out in runs. Only
-//           positions whose key covers bytes inside the page are sorted
-//           (the plain version's tail keys past them never give a
-//           length). The second pass writes each position's rank: rank r
-//           - k with an equal key is then the k-th nearest earlier
-//           position with that key, as in the plain version's stable sort.
-//   probe   one block a (page, 4,096 positions), so that 8 pages fill the
-//           card: the page prefix the block can reach in shared memory;
-//           a position's probes read the sorted pairs just below its rank
-//           (contiguous, no pointer chase), rank candidates by a common
-//           prefix capped at the tier's words, keep the first strictly
-//           longest, give the winner its full prefix up to 192 bytes, and
-//           replace it by the distance-1 run where that is strictly
-//           longer (runs from a suffix minimum over the block and a search
-//           for the first break past it). find_candidates' near and 3-byte
-//           slots are written here.
-//   finish  one block a page: the chain extension (a match of exactly 192
-//           bytes whose continuation at +192 holds a match at the same
-//           distance joins it) by 192 threads, each walking one residue
-//           class mod 192 downwards; then either slot 0 of the candidates,
-//           or the greedy cover: each taken position's successor (the
-//           first taken position at or after its end, from a two-level
-//           bitmap) in shared memory, one thread walking the successors
-//           from the first taken position, and the commands written by the
-//           whole block.
+// Two kernels, two launches a call:
+//   sort_probe  a thread block cluster of 2, 4 or 8 CTAs a (page, key
+//           family): the most whose CTAs fit the card's SMs (2 for the
+//           32-page q1 batch: 64 clusters on 128 SMs; 8 for an 8-page q11
+//           batch). Each CTA holds the page in shared memory.
+//           A stable LSD radix sort of the positions the family keys
+//           (those whose key covers bytes inside the page: the plain
+//           version's tail keys never give a length), two 8-bit passes:
+//           each warp counts the digits of a contiguous run of elements
+//           (shared-memory atomics), the counts are scanned over the
+//           cluster (each CTA reads every CTA's digit totals), and each
+//           element goes to its slot (equal digits of a row ranked by one
+//           ballot a digit bit) in the distributed shared memory of the
+//           cluster: CTA r holds slots [r part, (r + 1) part). Up to 64 KiB
+//           pages a slot is a uint16 position and its key is recomputed
+//           from the page words; 128 KiB pages keep uint32 slots in device
+//           scratch. Then the probes in sorted order: the CTA that holds
+//           slot i probes it, and slot i's k-th probe is slot i - k while
+//           its key is the same (a bin holds its positions in ascending
+//           order, so that is the k-th nearest earlier position with the
+//           key); neighbouring lanes read neighbouring slots, the 16 slots
+//           below a CTA's part are copied in, four probes' slots load at
+//           once, and the common prefix compares page words in shared
+//           memory (the probed suffix's first 16 bytes in registers). A
+//           probe that reaches the cap ends the family's probes. Each
+//           position gets its family's first strictly longest probe and
+//           that winner's full prefix up to 192 bytes, written once at p as
+//           len << 24 | distance; for the candidates, the family's first
+//           probes go the same way into a row of 8 words a position.
+//   finish  a block a page (for the candidates' rows, up to 8 blocks a
+//           page, each redoing the page's chain): the distance-1 runs (a
+//           bitmap of the positions where no run continues, and the first
+//           break past each word), the fold (family 0, then family 1 only
+//           where its capped prefix is strictly longer, then the run where
+//           strictly longer), each position's length in shared memory
+//           (uint16 up to 64 KiB pages) and its chain link (a match of
+//           exactly 192 bytes whose continuation at +192 holds a match at
+//           the same distance) as one ballot a word; the chain extension,
+//           each residue class mod 192 walked downwards in 5 segments that
+//           pass their state on; then the candidates' rows, each written
+//           once in two 16-byte stores an array, or the greedy cover: the
+//           taken positions as one ballot a word, 64 walkers follow the
+//           successors (the first taken position at or after a match's
+//           end) through their segments, the true path joins them, and the
+//           whole block writes the commands.
 //
 // What bounds it on this card: the bytes are few (a page read, its
-// commands or candidates written: ~8.4 MB for a 32-page q1 batch), so a
-// call is bounded by its chains of dependent steps and by the sort's
-// scattered traffic. The sort runs in tiles over every SM, its writes in
-// runs of one digit; the probes run over blocks of positions, with their
-// page prefix in shared memory and their pairs read contiguously; what
-// stays sequential (a residue class's chain, the cover's walk: one
-// successor load from shared memory a command, ~6,000 commands a q1 text
-// page) stays in one block a page with its data in shared memory.
+// commands written: ~8.4 MB for a 32-page q1 batch), so a call is bounded
+// by its sort passes, its probes' chains of dependent loads and the
+// cover's walks; the candidates' 268 MB of rows on a 64-page batch also
+// make the finish wait on device memory. The sort and the probes of a
+// (page, family) stay on chip in the cluster; a family's result is one
+// word a position; what stays sequential (the cover's walk) stays in one
+// block a page with the lengths and node lists in shared memory.
 //
 // Inputs: pages uint8 [P, S] (S a multiple of 4, at most 128 KiB, rows
 // 4-byte aligned), in_sizes int32 [P] (clamped to [0, S]). Scratch (int32
-// words): hist [P, F, 256, tiles], pairs [P, F, 2S] twice (64-bit (key,
-// position) pairs), rank [P, F, S], lens and dists [P, S]; for the cover,
-// the segment walkers' node lists [P, blg_match_nodes_ints(S)] and the
-// successors [P, S] (used past 64 KiB pages, where they do not fit 16
-// bits in shared memory).
+// words, blg_match_scratch_ints): the families' results [P, 2, S]; for the
+// candidates the near probes [P, S, 8]; past 64 KiB pages also the sort's
+// two slot arrays [P, F, 2, S], the lengths [P, S] and the cover's node
+// lists.
 // Outputs: ins, cpy, dist [P, max_cmds] and ncmds [P]; or cand_len,
 // cand_dist [P, S, 8].
 #include <cstdint>
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace blg_match {
 namespace {
@@ -73,27 +86,22 @@ constexpr uint32_t kHashMul8 = 0x9E3779B1u;
 constexpr int kMinMatch = 4;
 constexpr int kCapMax = 192;          // EXT_ROUNDS * 4 * MAX_MATCH_WORDS
 constexpr int kSlots = 8;
-constexpr int kSortThreads = 256;
-constexpr int kSortWarps = kSortThreads / 32;
-constexpr int kTile = 4096;           // elements a sort block
-constexpr int kWarpElems = kTile / kSortWarps;
-constexpr int kTileWords = kTile / 4 + 2;   // page words a tile's keys read
-constexpr int kDigits = 256;          // == kSortThreads: a thread a digit
+constexpr int kMaxCluster = 8;        // CTAs a (page, family): 2, 4 or 8
+constexpr int kThreads = 1024;        // both kernels
+constexpr int kWarps = kThreads / 32;
+constexpr int kDigits = 256;
 constexpr int kUnroll = 4;            // rows of a warp's sort step
-constexpr int kProbeThreads = 512;
-constexpr int kChunk = 4096;          // positions a probe block
-constexpr int kPerThread = kChunk / kProbeThreads;
-constexpr int kFinishThreads = 1024;
-constexpr int kWalkers = kCapMax;     // one a residue class mod 192
-constexpr int kAhead = 8;             // a walker's loads in flight
-constexpr int kSmallPage = 65536;     // successors fit 16 bits up to here
+constexpr int kSmallPage = 65536;     // positions fit 16 bits up to here
+constexpr int kFamilies = 2;          // families folded into the winner
+constexpr int kLenShift = 24;         // a family's result: len << 24 | dist
+constexpr uint32_t kDistMask = (1u << kLenShift) - 1;
+constexpr int kWalkers = kCapMax;     // residue classes mod 192
+constexpr int kLinks = kThreads / kWalkers;   // chain segments a class
 constexpr int kSegs = 64;             // the cover's walkers a page
-constexpr int kChainGroups = kWalkers / 32;   // candidates: warps a page
-constexpr uint16_t kNoStep = 0xFFFF;
 constexpr unsigned kFull = 0xffffffffu;
 
 // the key families: 4-byte, 8-byte and 3-byte keys; bytes a key covers
-__device__ inline int fam_bytes(int f) {
+__host__ __device__ inline int fam_bytes(int f) {
   return f == 0 ? 4 : (f == 1 ? 8 : 3);
 }
 
@@ -106,10 +114,6 @@ __device__ inline uint32_t word_at(const uint32_t* w, int p) {
   return __funnelshift_r(w[p >> 2], w[(p >> 2) + 1], (p & 3) * 8);
 }
 
-__device__ inline int byte_at(const uint32_t* w, int p) {
-  return (w[p >> 2] >> ((p & 3) * 8)) & 255;
-}
-
 __device__ inline uint32_t fam_key(const uint32_t* w, int f, int p) {
   uint32_t h = word_at(w, p);
   if (f == 2) return ((h & 0xFFFFFFu) * kHashMul8) >> 16;
@@ -119,27 +123,93 @@ __device__ inline uint32_t fam_key(const uint32_t* w, int f, int p) {
 }
 
 // common prefix of the suffixes at i and c < i, in bytes, up to
-// min(maxb, rem): the plain version's word-by-word LCP capped at maxb and
-// then at the room left in the page (words past the room never decide it)
-__device__ inline int lcp(const uint32_t* w, int i, int c, int maxb, int rem) {
+// min(maxb, rem), counting from byte m0 (a multiple of 4 whose bytes
+// before it are known equal): the plain version's word-by-word LCP capped
+// at maxb and then at the room left in the page (words past the room
+// never decide it)
+__device__ inline int lcp(const uint32_t* w, int i, int c, int m0, int maxb,
+                          int rem) {
   const int lim = min(maxb, rem);
-  for (int m = 0; m < lim; m += 4) {
-    uint32_t x = word_at(w, i + m) ^ word_at(w, c + m);
+  if (m0 >= lim) return lim;
+  // each side's aligned words slide along: one load a side a step
+  const int si = (i & 3) * 8, sc = (c & 3) * 8;
+  int ai = (i + m0) >> 2, ac = (c + m0) >> 2;
+  uint32_t i0 = w[ai], c0 = w[ac];
+  for (int m = m0; m < lim; m += 4) {
+    const uint32_t i1 = w[++ai], c1 = w[++ac];
+    const uint32_t x =
+        __funnelshift_r(i0, i1, si) ^ __funnelshift_r(c0, c1, sc);
     if (x) return min(m + ((__ffs(x) - 1) >> 3), lim);
+    i0 = i1;
+    c0 = c1;
   }
   return lim;
 }
 
-// the page's words [0, nload) into w, and two zero words after them
-__device__ void load_words(uint32_t* w, const uint8_t* row, int nload,
-                           int tid, int nthreads) {
-  const uint32_t* src = reinterpret_cast<const uint32_t*>(row);
-  for (int j = tid; j < nload; j += nthreads) w[j] = src[j];
-  if (tid < 2) w[nload + tid] = 0;
+constexpr int kHead = 4;   // words of a probed suffix kept in registers
+constexpr int kPresence = 3;   // bitmaps a page: the near rows' parts
+
+// the first word of family f's presence bitmap (of nwb words) for its part
+// of a page's near rows
+__host__ __device__ inline size_t presence(int page, int f, int nwb) {
+  return (static_cast<size_t>(page) * kPresence + f) * nwb;
 }
 
+// the words at bytes p, p + 4, ... of the page (the last read may pass
+// the page's words: the room left caps what it decides)
+__device__ inline void head_words(const uint32_t* w, int p,
+                                  uint32_t (&h)[kHead]) {
+  const int a = p >> 2, sh = (p & 3) * 8;
+  uint32_t v[kHead + 1];
+#pragma unroll
+  for (int k = 0; k <= kHead; ++k) v[k] = w[a + k];
+#pragma unroll
+  for (int k = 0; k < kHead; ++k) h[k] = __funnelshift_r(v[k], v[k + 1], sh);
+}
+
+// lcp(w, i, c, 0, maxb, rem) with the suffix at i's first words in h: the
+// candidate's words load at once, the rest slides on from byte 16
+__device__ inline int lcp_head(const uint32_t* w, int i,
+                               const uint32_t (&h)[kHead], int c, int maxb,
+                               int rem) {
+  const int lim = min(maxb, rem);
+  uint32_t hc[kHead];
+  head_words(w, c, hc);
+#pragma unroll
+  for (int k = 0; k < kHead; ++k) {
+    if (4 * k >= lim) return lim;
+    const uint32_t x = h[k] ^ hc[k];
+    if (x) return min(4 * k + ((__ffs(x) - 1) >> 3), lim);
+  }
+  return lcp(w, i, c, 4 * kHead, maxb, rem);
+}
+
+// A slot array [0, S) split between a cluster's CTAs: CTA r holds slots
+// [base, base + part) = [r part, (r + 1) part) in its shared memory at
+// own, after kHalo slots that take the slots just below base; for 128 KiB
+// pages the whole array is device scratch, at own - base.
+template <typename Pos>
+struct Split {
+  Pos* own;
+  int base, part, r;
+  float inv;   // 1 / part, for the CTA of a slot
+  bool chip;
+  __device__ void put(cg::cluster_group& cluster, int s, Pos v) const {
+    const int o = s - base;
+    if (!chip || (o >= 0 && o < part)) {
+      own[o] = v;
+      return;
+    }
+    int t = __float2int_rz(static_cast<float>(s) * inv);
+    t -= t * part > s;
+    t += (t + 1) * part <= s;
+    cluster.map_shared_rank(own, t)[s - t * part] = v;
+  }
+};
+
 // ---------------------------------------------------------------------------
-// hist and scatter: the stable radix sort of each family's pairs
+// sort_probe: the stable sort of a family's positions and the probes, a
+// cluster of 2, 4 or 8 CTAs a (page, family)
 // ---------------------------------------------------------------------------
 
 // the valid lanes of the warp whose 8-bit digit equals this lane's (a
@@ -157,18 +227,8 @@ __device__ inline unsigned digit_peers(uint32_t digit, bool valid) {
   return peers;
 }
 
-// positions family f keys in a page: those whose key covers bytes inside
-// it (the plain version's tail keys, past them, never give a length)
-__device__ inline int keyed(const int32_t* in_sizes, int page, int S, int f) {
-  return max(0, clamp_limit(in_sizes, page, S) - fam_bytes(f) + 1);
-}
-
-__host__ __device__ inline int sort_tiles(int S) {
-  return (S + kTile - 1) / kTile;
-}
-
-// the exclusive prefix sum of v over the block's kSortThreads threads
-// (sums: kSortWarps ints of shared memory)
+// the exclusive prefix sum of v over the block's kThreads threads (sums:
+// kWarps ints of shared memory)
 __device__ int block_exclusive(int v, int* sums, int tid) {
   const int lane = tid & 31, wid = tid >> 5;
   int incl = v;
@@ -180,14 +240,14 @@ __device__ int block_exclusive(int v, int* sums, int tid) {
   if (lane == 31) sums[wid] = incl;
   __syncthreads();
   if (wid == 0) {
-    const int x = lane < kSortWarps ? sums[lane] : 0;
+    const int x = sums[lane];
     int run = x;
 #pragma unroll
-    for (int off = 1; off < kSortWarps; off <<= 1) {
+    for (int off = 1; off < kWarps; off <<= 1) {
       const int y = __shfl_up_sync(kFull, run, off);
       if (lane >= off) run += y;
     }
-    if (lane < kSortWarps) sums[lane] = run - x;
+    sums[lane] = run - x;
   }
   __syncthreads();
   const int out = incl - v + sums[wid];
@@ -195,386 +255,441 @@ __device__ int block_exclusive(int v, int* sums, int tid) {
   return out;
 }
 
-// a lane's (key << 32 | position) pairs of kUnroll rows from element e on
-// (rows 32 elements apart), up to e1: the first pass hashes them from the
-// tile's page words wl (byte t0 first), the second reads its input
-__device__ inline void tile_pairs(uint64_t* v, const uint32_t* wl, int t0,
-                                  int f, int pass, const uint64_t* in, int e,
-                                  int e1) {
-#pragma unroll
-  for (int u = 0; u < kUnroll; ++u, e += 32) {
-    v[u] = 0;
-    if (e < e1)
-      v[u] = pass == 0 ? (static_cast<uint64_t>(fam_key(wl, f, e - t0))
-                          << 32) | static_cast<uint32_t>(e)
-                       : in[e];
-  }
-}
-
-// the pass's 8-bit digit of a pair's key: low byte, then high byte
-__device__ inline uint32_t pair_digit(uint64_t v, int pass) {
-  return static_cast<uint32_t>(v >> (pass == 0 ? 32 : 40)) & 255;
-}
-
-// What the histogram and scatter blocks share: the (page, family) pf and
-// tile of the block, the tile's elements [t0, t1), and, for the first
-// pass, the page words its keys read (from byte t0) in wl.
-struct Tile {
-  int pf, tile, f, t0, t1;
+// What a (page, family) cluster's sort passes share: the page words, the
+// family, the keyed positions [0, n), the cluster's CTAs, this CTA's rank
+// and its part of the slots.
+struct Sort {
+  const uint32_t* w;
+  int f, n, nc, r, part;
 };
 
-__device__ Tile sort_tile(const uint8_t* pages, const int32_t* in_sizes,
-                          int S, int nfam, int pass, uint32_t* wl, int tid) {
-  const int T = sort_tiles(S);
-  Tile t;
-  t.pf = blockIdx.x / T;
-  t.tile = blockIdx.x % T;
-  t.f = t.pf % nfam;
-  const int page = t.pf / nfam;
-  t.t0 = t.tile * kTile;
-  t.t1 = min(keyed(in_sizes, page, S, t.f), t.t0 + kTile);
-  if (pass == 0) {
-    const uint32_t* src = reinterpret_cast<const uint32_t*>(
-        pages + static_cast<size_t>(page) * S);
-    const int nw = min(kTileWords, (S - t.t0) >> 2);
-    for (int j = tid; j < kTileWords + 2; j += kSortThreads)
-      wl[j] = j < nw ? src[(t.t0 >> 2) + j] : 0;
-  }
-  return t;
+// element e of a pass (one of this CTA's): pass 0 sorts the positions
+// [0, n) by the key's low byte, pass 1 the pass-0 order by its high byte
+template <typename Pos>
+__device__ inline void element(const Sort& s, int pass, const Split<Pos>& in,
+                               int e, uint32_t& val, uint32_t& digit) {
+  val = pass == 0 ? static_cast<uint32_t>(e)
+                  : static_cast<uint32_t>(in.own[e - in.base]);
+  const uint32_t key = fam_key(s.w, s.f, static_cast<int>(val));
+  digit = pass == 0 ? key & 255 : key >> 8;
 }
 
-// Counts of each digit over warp wid's rows of the tile (warp wid takes
-// elements [t0 + 512 wid, t0 + 512 (wid + 1))) into cnt[wid][digit].
-__device__ void warp_counts(const Tile& t, const uint32_t* wl, int pass,
-                            const uint64_t* in, int* cnt, int tid) {
+// One stable pass: this CTA's elements [r part, min(n, (r + 1) part)),
+// warp wid a contiguous run of them, counted by digit into cnt[wid][digit];
+// the digit's start over the cluster (every CTA's totals), the earlier
+// CTAs' and warps' elements of the digit; each element to its slot of out
+// (equal digits of a row ranked by one ballot a digit bit).
+template <typename Pos>
+__device__ void sort_pass(const Sort& s, int pass, const Split<Pos>& in,
+                          const Split<Pos>& out, int* cnt, int* tot,
+                          int* sums, cg::cluster_group& cluster, int tid) {
   const int lane = tid & 31, wid = tid >> 5;
-  const int lo = t.t0 + wid * kWarpElems;
-  const int hi = min(t.t1, lo + kWarpElems);
+  const int q = (s.part + kWarps - 1) / kWarps;
+  const int lo = s.r * s.part + wid * q;
+  const int hi = min(min(s.n, (s.r + 1) * s.part), lo + q);
+  for (int j = tid; j < kWarps * kDigits; j += kThreads) cnt[j] = 0;
+  __syncthreads();
   for (int e0 = lo; e0 < hi; e0 += 32 * kUnroll) {
-    uint64_t v[kUnroll];
-    tile_pairs(v, wl, t.t0, t.f, pass, in, e0 + lane, hi);
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      const bool ok = e0 + 32 * u + lane < hi;
-      const uint32_t digit = pair_digit(v[u], pass);
-      const unsigned peers = digit_peers(digit, ok);
-      if (ok && lane == __ffs(peers) - 1)
-        cnt[wid * kDigits + digit] += __popc(peers);
-      __syncwarp();
+      if (e0 + 32 * u + lane < hi) {
+        uint32_t val, dig;
+        element(s, pass, in, e0 + 32 * u + lane, val, dig);
+        atomicAdd(&cnt[wid * kDigits + dig], 1);
+      }
     }
   }
-}
-
-// hist: one block a (page, family, tile of 4,096 elements): the tile's
-// count of each digit of the pass, into hist[pf][digit][tile]
-__global__ void __launch_bounds__(kSortThreads)
-    hist_kernel(const uint8_t* __restrict__ pages,
-                const int32_t* __restrict__ in_sizes, int S, int nfam,
-                int pass, const uint64_t* __restrict__ in,
-                int32_t* __restrict__ hist) {
-  extern __shared__ uint32_t smem[];
-  const int tid = threadIdx.x;
-  int* cnt = reinterpret_cast<int*>(smem);              // [warps][256]
-  uint32_t* wl = reinterpret_cast<uint32_t*>(cnt + kSortWarps * kDigits);
-  for (int j = tid; j < kSortWarps * kDigits; j += kSortThreads) cnt[j] = 0;
-  const Tile t = sort_tile(pages, in_sizes, S, nfam, pass, wl, tid);
   __syncthreads();
-  warp_counts(t, wl, pass, in + static_cast<size_t>(t.pf) * S, cnt, tid);
-  __syncthreads();
-  int sum = 0;
-  for (int wv = 0; wv < kSortWarps; ++wv) sum += cnt[wv * kDigits + tid];
-  hist[(static_cast<size_t>(t.pf) * kDigits + tid) * sort_tiles(S) +
-       t.tile] = sum;
-}
-
-// scatter: one block a (page, family, tile): each element's place in the
-// stable order of the pass (the digit's start over all tiles, the earlier
-// tiles' elements of that digit, the earlier elements of this tile), the
-// tile reordered by digit in shared memory and written out in runs. The
-// second pass also writes each position's rank.
-__global__ void __launch_bounds__(kSortThreads)
-    scatter_kernel(const uint8_t* __restrict__ pages,
-                   const int32_t* __restrict__ in_sizes, int S, int nfam,
-                   int pass, const int32_t* __restrict__ hist,
-                   const uint64_t* __restrict__ in,
-                   uint64_t* __restrict__ out, int32_t* __restrict__ rank) {
-  extern __shared__ uint32_t smem[];
-  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
-  uint64_t* buf = reinterpret_cast<uint64_t*>(smem);   // [kTile]
-  int* cnt = reinterpret_cast<int*>(buf + kTile);      // [warps][256]
-  int* tstart = cnt + kSortWarps * kDigits;            // [256]
-  int* base = tstart + kDigits;                        // [256]
-  int* sums = base + kDigits;                          // [warps]
-  uint32_t* wl = reinterpret_cast<uint32_t*>(sums + kSortWarps);
-  for (int j = tid; j < kSortWarps * kDigits; j += kSortThreads) cnt[j] = 0;
-  const Tile t = sort_tile(pages, in_sizes, S, nfam, pass, wl, tid);
-  if (t.t0 >= t.t1) return;   // the whole block: an empty tile
-  const size_t row = static_cast<size_t>(t.pf) * S;
-  const int T = sort_tiles(S);
-  // the digit's first slot in the pass's output, from every tile's counts
-  {
-    const int32_t* h = hist + (static_cast<size_t>(t.pf) * kDigits + tid) * T;
-    int total = 0, before = 0;
-    for (int k = 0; k < T; ++k) {
-      total += h[k];
-      if (k < t.tile) before += h[k];
-    }
-    base[tid] = block_exclusive(total, sums, tid) + before;
-  }
-  warp_counts(t, wl, pass, in + row, cnt, tid);
-  __syncthreads();
-  {
+  if (tid < kDigits) {
     int run = 0;
-    for (int wv = 0; wv < kSortWarps; ++wv) {
+    for (int wv = 0; wv < kWarps; ++wv) {
       const int c = cnt[wv * kDigits + tid];
       cnt[wv * kDigits + tid] = run;
       run += c;
     }
-    const int start = block_exclusive(run, sums, tid);
-    tstart[tid] = start;
-    for (int wv = 0; wv < kSortWarps; ++wv) cnt[wv * kDigits + tid] += start;
+    tot[tid] = run;
   }
+  cluster.sync();   // every CTA's digit totals
+  int all = 0, before = 0;
+  if (tid < kDigits) {
+    for (int t = 0; t < s.nc; ++t) {
+      const int v = t == s.r ? tot[tid] : cluster.map_shared_rank(tot, t)[tid];
+      all += v;
+      if (t < s.r) before += v;
+    }
+  }
+  const int start = block_exclusive(tid < kDigits ? all : 0, sums, tid) +
+                    before;
+  if (tid < kDigits)
+    for (int wv = 0; wv < kWarps; ++wv) cnt[wv * kDigits + tid] += start;
   __syncthreads();
-  // each element to its slot in the tile, in the stable order
   const unsigned below = (1u << lane) - 1;
-  const int lo = t.t0 + wid * kWarpElems;
-  const int hi = min(t.t1, lo + kWarpElems);
   for (int e0 = lo; e0 < hi; e0 += 32 * kUnroll) {
-    uint64_t v[kUnroll];
-    tile_pairs(v, wl, t.t0, t.f, pass, in + row, e0 + lane, hi);
+    uint32_t val[kUnroll], dig[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      val[u] = dig[u] = 0;
+      if (e0 + 32 * u + lane < hi)
+        element(s, pass, in, e0 + 32 * u + lane, val[u], dig[u]);
+    }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const bool ok = e0 + 32 * u + lane < hi;
-      const uint32_t digit = pair_digit(v[u], pass);
-      const unsigned peers = digit_peers(digit, ok);
+      const unsigned peers = digit_peers(dig[u], ok);
       int slot = 0;
-      if (ok) slot = cnt[wid * kDigits + digit] + __popc(peers & below);
+      if (ok) slot = cnt[wid * kDigits + dig[u]] + __popc(peers & below);
       __syncwarp();
       if (ok && lane == __ffs(peers) - 1)
-        cnt[wid * kDigits + digit] += __popc(peers);
+        cnt[wid * kDigits + dig[u]] += __popc(peers);
       __syncwarp();
-      if (ok) buf[slot] = v[u];
+      if (ok) out.put(cluster, slot, static_cast<Pos>(val[u]));
     }
   }
-  __syncthreads();
-  // the tile in slot order: runs of one digit go to consecutive places
-  for (int s = tid; s < t.t1 - t.t0; s += kSortThreads) {
-    const uint64_t v = buf[s];
-    const uint32_t digit = pair_digit(v, pass);
-    const int dst = base[digit] + s - tstart[digit];
-    out[row + dst] = v;
-    if (pass == 1) rank[row + static_cast<uint32_t>(v)] = dst;
-  }
+  cluster.sync();   // every slot written, in every CTA
 }
 
-// ---------------------------------------------------------------------------
-// probe: candidates, the winner's prefix and the runs, a block of positions
-// ---------------------------------------------------------------------------
+constexpr int kHalo = 16;   // slots below a CTA's own that its probes read
+constexpr int kBatch = 4;   // probes whose slots load together
 
-// Family F's probes of position p: the nearest earlier positions with its
-// key (the pairs just below its rank r), ranked by a common prefix capped
-// at maxb bytes and the room left; (fl, fd) the first strictly longest
-// and its distance (0, 0 where there is none), and with near the first
-// probes' lengths and distances (0 where the length is) in the family's
-// slots of nl and nd. A position whose key reaches past the page has no
-// probe (the plain version's tail keys).
-template <int F>
-__device__ inline void probe_family(const uint32_t* w, const uint64_t* sp,
-                                    const int32_t* rank, int p, int limit,
-                                    int rem, int maxb, bool near, int& fl,
-                                    int& fd, int (&nl)[7], int (&nd)[7]) {
+// Family F's probes of sorted slot i (Bp[j] the position at slot j, Kp[j]
+// its key, for j from i - 16 to i), the warp's lanes on consecutive slots
+// (valid: the slot is one of the CTA's keyed ones): the nearest earlier
+// positions with its key are the slots just below it, ranked by a common
+// prefix capped at maxb bytes (8 for the 3-byte family) and the room
+// left; the first strictly longest wins. Writes the winner as len << 24 |
+// distance at p (len its full prefix up to 192 bytes) for families 0 and
+// 1, and with the candidates the family's first probes (prefix << 24 |
+// distance, 0 where the prefix is) into p's row of near: family 0 at 0-2,
+// 1 at 4-5, 2 at 6-7. Each is stored only where it is not 0 (the words
+// over an array the cluster cleared, the rows' parts with p's bit set in
+// a presence bitmap): on near-random pages most are 0, and their
+// scattered stores were most of the kernel's time.
+//
+// Every lane takes its first probe together; probe k's prefix is then at
+// least min(probe k - 1's, the first probe of the lane k - 1 below), the
+// prefix of slot i - k + 1 against i - k (the suffixes at i, i - k + 1
+// and i - k share it): where that reaches the cap the probe compares
+// nothing, else it compares from there.
+template <int F, typename Pos>
+__device__ void probe_slot(const uint32_t* w, const Pos* Bp, const Pos* Kp,
+                           int i, bool valid, int page, int S, int limit,
+                           int maxb, uint32_t* __restrict__ res,
+                           uint32_t* __restrict__ near,
+                           uint32_t* __restrict__ bits) {
   constexpr int kProbes = F == 0 ? 16 : (F == 1 ? 4 : 2);
   constexpr int kNear = F == 0 ? 3 : 2;
-  constexpr int kSlot = F == 0 ? 0 : (F == 1 ? 3 : 5);
-  fl = 0;
-  fd = 0;
-  if (p + fam_bytes(F) > limit) return;
-  const int r = rank[p];
-  const uint32_t key = static_cast<uint32_t>(sp[r] >> 32);
+  constexpr int kSlot = F == 0 ? 0 : (F == 1 ? 4 : 6);
+  const int lane = threadIdx.x & 31;
+  const int mb = F == 2 ? 8 : maxb;
+  int p = 0, rem = 0, l1 = 0, c1 = 0;
+  uint32_t key = 0, h[kHead];
+  if (valid) {
+    p = Bp[i];
+    key = Kp[i];
+    rem = limit - p;
+    head_words(w, p, h);
+    if (i >= 1 && Kp[i - 1] == key) {
+      c1 = Bp[i - 1];
+      l1 = lcp_head(w, p, h, c1, mb, rem);
+    }
+  }
+  int below[kBatch - 1];   // the first probes of the lanes 1, 2, 3 below
 #pragma unroll
-  for (int k = 1; k <= kProbes; ++k) {
-    if (k > r) break;
-    const uint64_t v = sp[r - k];
-    if (static_cast<uint32_t>(v >> 32) != key) break;
-    const int c = static_cast<int>(static_cast<uint32_t>(v));
-    const int ml = lcp(w, p, c, maxb, rem);
-    if (near && k <= kNear) {
-      nl[kSlot + k - 1] = ml;
-      nd[kSlot + k - 1] = ml > 0 ? p - c : 0;
+  for (int u = 1; u < kBatch; ++u) {
+    const int v = __shfl_up_sync(kFull, l1, u);
+    below[u - 1] = lane >= u ? v : 0;
+  }
+  if (!valid) return;
+  // probes past one that reaches the cap cannot be strictly longer: they
+  // stop there, after the near slots' probes
+  const int lim = min(mb, rem), last = near != nullptr ? kNear : 0;
+  int fl = 0, fd = 0, prev = 0;
+  uint32_t tail = 0;    // the best's word that ends at byte fl (fl >= 3)
+  uint32_t nr[kNear];   // the near probes: prefix << 24 | distance
+#pragma unroll
+  for (int j = 0; j < kNear; ++j) nr[j] = 0;
+  bool more = i >= 1 && Kp[i - 1] == key;
+  if (more) {   // probe 1
+    prev = l1;
+    if (l1 > 0) {
+      nr[0] = static_cast<uint32_t>(l1) << kLenShift |
+              static_cast<uint32_t>(p - c1);
+      fl = l1;
+      fd = p - c1;
+      if (fl >= 3 && fl < lim) tail = word_at(w, p + fl - 3);
     }
-    if (ml > fl) {
-      fl = ml;
-      fd = p - c;
+    if (fl == lim && 1 >= last) more = false;
+  }
+#pragma unroll
+  for (int k0 = 2; k0 <= kProbes; k0 += kBatch) {
+    if (!more) break;
+    int c[kBatch];
+    bool same[kBatch];
+    // the batch's slots, loaded at once (none below the halo)
+#pragma unroll
+    for (int u = 0; u < kBatch && k0 + u <= kProbes; ++u) {
+      const int j = max(i - k0 - u, 0);
+      same[u] = i - k0 - u >= 0 && Kp[j] == key;
+      c[u] = Bp[j];
     }
+#pragma unroll
+    for (int u = 0; u < kBatch && k0 + u <= kProbes; ++u) {
+      const int k = k0 + u;
+      if (!same[u]) {
+        more = false;
+        break;
+      }
+      // a probe can be strictly longer than the best only where its word
+      // ending at byte fl matches: past the near slots, that word first
+      if (k > last && fl >= 3 && word_at(w, c[u] + fl - 3) != tail) {
+        prev = 0;
+        continue;
+      }
+      const int lb = k <= kBatch ? min(prev, below[k - 2]) : 0;
+      const int ml = lb >= lim ? lim
+                     : lb >= 4 ? lcp(w, p, c[u], lb & ~3, mb, rem)
+                               : lcp_head(w, p, h, c[u], mb, rem);
+      prev = ml;
+      if (k <= kNear && ml > 0)
+        nr[k - 1] = static_cast<uint32_t>(ml) << kLenShift |
+                    static_cast<uint32_t>(p - c[u]);
+      if (ml > fl) {
+        fl = ml;
+        fd = p - c[u];
+        if (fl >= 3 && fl < lim) tail = word_at(w, p + fl - 3);
+      }
+      if (fl == lim && k >= last) {
+        more = false;
+        break;
+      }
+    }
+  }
+  // only what is not 0 is stored: the families' words over a cleared
+  // array, the near rows' parts with a bit in their presence bitmap
+  if (F < 2 && fd > 0) {
+    // the capped prefix fell short of the cap: it is the full one
+    const int len = fl < mb ? fl : lcp(w, p, p - fd, mb, kCapMax, rem);
+    res[(static_cast<size_t>(page) * kFamilies + F) * S + p] =
+        static_cast<uint32_t>(len) << kLenShift | static_cast<uint32_t>(fd);
+  }
+  if (near != nullptr && (nr[0] | nr[1] | nr[kNear - 1])) {
+    // the family's part of p's row, one store
+    uint32_t* row = near + (static_cast<size_t>(page) * S + p) * kSlots + kSlot;
+    if constexpr (F == 0)
+      *reinterpret_cast<uint4*>(row) = make_uint4(nr[0], nr[1], nr[2], 0);
+    else
+      *reinterpret_cast<uint2*>(row) = make_uint2(nr[0], nr[1]);
+    atomicOr(bits + presence(page, F, (S + 31) >> 5) + (p >> 5),
+             1u << (p & 31));
   }
 }
 
-__global__ void __launch_bounds__(kProbeThreads)
-    probe_kernel(const uint8_t* __restrict__ pages,
-                 const int32_t* __restrict__ in_sizes, int S, int nfam,
-                 int rank_words, int cap,
-                 const uint64_t* __restrict__ pairs,
-                 const int32_t* __restrict__ rank, int32_t* __restrict__ lens,
-                 int32_t* __restrict__ dists, int32_t* __restrict__ cand_len,
-                 int32_t* __restrict__ cand_dist) {
-  extern __shared__ uint32_t smem[];
+// the slots a CTA of a cluster of nc holds
+__host__ __device__ inline int slot_part(int S, int nc) {
+  return (S + nc - 1) / nc;
+}
+
+template <typename Pos>
+__global__ void __launch_bounds__(kThreads, 1)
+    sort_probe_kernel(const uint8_t* __restrict__ pages,
+                      const int32_t* __restrict__ in_sizes, int S, int nfam,
+                      int rank_words, uint32_t* __restrict__ res,
+                      Pos* __restrict__ slots, uint32_t* __restrict__ near,
+                      uint32_t* __restrict__ bits) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x;
-  const int nchunks = (S + kChunk - 1) / kChunk;
-  const int page = blockIdx.x / nchunks;
-  const int a = (blockIdx.x % nchunks) * kChunk;
-  const int end = min(S, a + kChunk);
+  const int nc = static_cast<int>(cluster.num_blocks());
+  const int r = static_cast<int>(cluster.block_rank());
+  const int pf = blockIdx.x / nc;
+  const int page = pf / nfam, f = pf % nfam;
   const int limit = clamp_limit(in_sizes, page, S);
-  const uint8_t* row = pages + static_cast<size_t>(page) * S;
-  int* run = reinterpret_cast<int*>(smem);      // [kChunk]
-  int* suf = run + kChunk;                      // [kProbeThreads]
-  int* flip_end = suf + kProbeThreads;          // [1]
-  uint32_t* w = reinterpret_cast<uint32_t*>(flip_end + 4);
-  // the bytes a position of the block can reach: its winner's 192 bytes
-  // and the word after them
-  const int nload = min(S >> 2, (end + kCapMax + 8) / 4 + 1);
-  load_words(w, row, nload, tid, kProbeThreads);
-  if (tid == 0) *flip_end = S;
-  __syncthreads();
-
-  // ---- distance-1 runs: eq(p) = p < limit && byte p == byte p - 1 ----
-  // the first position at or past the block's end where a run breaks
-  // (reads the row itself: a run may reach past the loaded prefix)
-  if (end < S) {
-    for (int p0 = end;; p0 += kProbeThreads) {
-      const int p = p0 + tid;
-      const bool brk = p < S && (p >= limit || row[p] != row[p - 1]);
-      if (brk) atomicMin(flip_end, p);
-      if (__syncthreads_or(brk) || p0 + kProbeThreads >= S) break;
-    }
+  const int part = slot_part(S, nc), base = r * part;
+  constexpr bool kOnChip = sizeof(Pos) == 2;   // 16-bit slots: S <= 64 KiB
+  uint32_t* w = smem;                                   // [S / 4 + 2]
+  int* tot = reinterpret_cast<int*>(w + S / 4 + 2);     // [256]
+  int* sums = tot + kDigits;                            // [warps]
+  int* cnt = sums + kWarps;                             // [warps][256]
+  // the slots, A (pass 0's order, then the sorted keys) and B (the sorted
+  // positions): on chip, this CTA's part of each after kHalo slots that
+  // take the ones just below it
+  Split<Pos> A, B;
+  if (kOnChip) {
+    Pos* local = reinterpret_cast<Pos*>(cnt + kWarps * kDigits);
+    A.own = local + kHalo;
+    B.own = A.own + part + kHalo;
+  } else {
+    A.own = slots + static_cast<size_t>(pf) * 2 * S + base;
+    B.own = A.own + S;
   }
-  __syncthreads();
-  const int s0 = a + tid * kPerThread, s1 = min(end, s0 + kPerThread);
-  int first = S;     // the first break in this thread's positions
-  for (int p = s1 - 1; p >= s0; --p) {
-    bool eq = p > 0 && p < limit && byte_at(w, p) == byte_at(w, p - 1);
-    if (!eq) first = p;
-  }
-  suf[tid] = min(first, *flip_end);
-  __syncthreads();
-  for (int o = 1; o < kProbeThreads; o <<= 1) {
-    int v = suf[tid];
-    if (tid + o < kProbeThreads) v = min(v, suf[tid + o]);
-    __syncthreads();
-    suf[tid] = v;
-    __syncthreads();
-  }
-  int nf = tid + 1 < kProbeThreads ? suf[tid + 1] : *flip_end;
-  for (int p = s1 - 1; p >= s0; --p) {
-    bool eq = p > 0 && p < limit && byte_at(w, p) == byte_at(w, p - 1);
-    if (!eq) nf = p;
-    run[p - a] = eq ? min(nf - p, max(limit - p, 0)) : 0;
+  A.base = B.base = base;
+  A.part = B.part = part;
+  A.r = B.r = r;
+  A.inv = B.inv = 1.0f / static_cast<float>(part);
+  A.chip = B.chip = kOnChip;
+  const uint32_t* src = reinterpret_cast<const uint32_t*>(
+      pages + static_cast<size_t>(page) * S);
+  for (int j = tid; j < S / 4; j += kThreads) w[j] = src[j];
+  if (tid < 2) w[S / 4 + tid] = 0;
+  {   // this (page, family)'s words and presence bitmap, cleared before
+      // the first cluster barrier orders them ahead of the probes' stores
+    const int nwb = (S + 31) >> 5;
+    if (f < kFamilies)
+      for (int j = r * kThreads + tid; j < S; j += nc * kThreads)
+        res[(static_cast<size_t>(page) * kFamilies + f) * S + j] = 0;
+    if (near != nullptr)
+      for (int j = r * kThreads + tid; j < nwb; j += nc * kThreads)
+        bits[presence(page, f, nwb) + j] = 0;
   }
   __syncthreads();
 
-  // ---- the probes, the winner, the run ----
-  const bool cands = cand_len != nullptr;
-  for (int p = a + tid; p < end; p += kProbeThreads) {
-    const int rem = max(limit - p, 0);
-    int best = 0, bdist = 0, fl, fd;
-    // near candidates: 4-byte family 0-2, 8-byte 3-4, 3-byte 5-6
-    int nl[7] = {0, 0, 0, 0, 0, 0, 0}, nd[7] = {0, 0, 0, 0, 0, 0, 0};
-    const size_t base = static_cast<size_t>(page) * nfam * S;
-    probe_family<0>(w, pairs + base, rank + base, p, limit, rem,
-                    4 * rank_words, cands, best, bdist, nl, nd);
-    probe_family<1>(w, pairs + base + S, rank + base + S, p, limit, rem,
-                    4 * rank_words, cands, fl, fd, nl, nd);
-    if (fl > best) {   // the 8-byte family replaces only when longer
-      best = fl;
-      bdist = fd;
+  const Sort s{w, f, max(0, limit - fam_bytes(f) + 1), nc, r, part};
+  sort_pass(s, 0, A, A, cnt, tot, sums, cluster, tid);
+  sort_pass(s, 1, A, B, cnt, tot, sums, cluster, tid);
+  // the keys of this CTA's sorted slots, into A (free after pass 1)
+  const int i1 = min(s.n, base + part);
+  for (int i = base + tid; i < i1; i += kThreads)
+    A.own[i - base] = static_cast<Pos>(fam_key(w, f, B.own[i - base]));
+  cluster.sync();
+  // slot j of either at Bp[j], Kp[j], for j from base - kHalo on
+  const Pos* Bp = B.own - base;
+  const Pos* Kp = A.own - base;
+  if (kOnChip) {
+    const int j = base - kHalo + tid;   // the halo's slots, from their CTAs
+    if (tid < kHalo && j >= 0) {
+      const int t = j / part;
+      A.own[tid - kHalo] = cluster.map_shared_rank(A.own, t)[j - t * part];
+      B.own[tid - kHalo] = cluster.map_shared_rank(B.own, t)[j - t * part];
     }
-    if (cands)
-      probe_family<2>(w, pairs + base + 2 * S, rank + base + 2 * S, p, limit,
-                      rem, 8, true, fl, fd, nl, nd);
-    int len = best > 0 ? lcp(w, p, p - bdist, kCapMax, rem) : 0;
-    int dist = bdist;
-    if (run[p - a] > len) {
-      len = run[p - a];
-      dist = 1;
-    }
-    const size_t at = static_cast<size_t>(page) * S + p;
-    lens[at] = len;
-    dists[at] = dist;
-    if (cands) {   // a row in two 16-byte stores; slot 0's length is the
-                   // finish kernel's
-      int v[7];
-#pragma unroll
-      for (int j = 0; j < 5; ++j) {
-        v[j] = min(min(nl[j], rem), cap);
-        v[j] = v[j] >= kMinMatch ? v[j] : 0;
-      }
-#pragma unroll
-      for (int j = 5; j < 7; ++j)
-        v[j] = min(min(nl[j] >= 2 ? nl[j] : 0, rem), cap);
-      int4* cl = reinterpret_cast<int4*>(cand_len + at * kSlots);
-      int4* cd = reinterpret_cast<int4*>(cand_dist + at * kSlots);
-      cl[0] = make_int4(0, v[0], v[1], v[2]);
-      cl[1] = make_int4(v[3], v[4], v[5], v[6]);
-      cd[0] = make_int4(dist, nd[0], nd[1], nd[2]);
-      cd[1] = make_int4(nd[3], nd[4], nd[5], nd[6]);
-    }
+    __syncthreads();
   }
+
+  const int maxb = 4 * rank_words;
+  // each warp a run of 32 consecutive slots
+  for (int i0 = base + (tid & ~31); i0 < i1; i0 += kThreads) {
+    const int i = i0 + (tid & 31);
+    if (f == 0)
+      probe_slot<0>(w, Bp, Kp, i, i < i1, page, S, limit, maxb, res, near,
+                    bits);
+    else if (f == 1)
+      probe_slot<1>(w, Bp, Kp, i, i < i1, page, S, limit, maxb, res, near,
+                    bits);
+    else
+      probe_slot<2>(w, Bp, Kp, i, i < i1, page, S, limit, maxb, res, near,
+                    bits);
+  }
+  cluster.sync();   // the other CTAs read this one's slots until here
 }
 
 // ---------------------------------------------------------------------------
-// finish: the chain extension, then slot 0 or the greedy cover, a page
+// finish: the runs, the fold, the chain extension, then slot 0 or the
+// greedy cover, a page
 // ---------------------------------------------------------------------------
 
-// the first taken position at or after j (S if none): bm holds a bit a
-// position, l1 a bit a nonzero word of bm
-__device__ int next_taken(const uint32_t* bm, const uint32_t* l1, int j,
-                          int S) {
+__device__ inline bool bit(const uint32_t* bm, int p) {
+  return (bm[p >> 5] >> (p & 31)) & 1;
+}
+
+// The first set bit of bits at or after j (S if none): after[k] holds the
+// first set bit past word k (0 for none: no bit past a word is bit 0).
+template <typename Fin>
+__device__ inline int next_set(const uint32_t* bits, const Fin* after, int j,
+                               int S) {
   if (j >= S) return S;
-  const int nw = (S + 31) >> 5, nu = (nw + 31) >> 5;
-  int wi = j >> 5;
-  const uint32_t bits = bm[wi] & (kFull << (j & 31));
-  if (bits) return (wi << 5) + __ffs(bits) - 1;
-  if (++wi >= nw) return S;
-  int ui = wi >> 5;
-  uint32_t u = l1[ui] & (kFull << (wi & 31));
-  while (!u) {
-    if (++ui >= nu) return S;
-    u = l1[ui];
-  }
-  wi = (ui << 5) + __ffs(u) - 1;
-  return (wi << 5) + __ffs(bm[wi]) - 1;
+  const uint32_t b = bits[j >> 5] & (kFull << (j & 31));
+  if (b) return min(((j >> 5) << 5) + __ffs(b) - 1, S);
+  const int a = static_cast<int>(after[j >> 5]);
+  return a ? a : S;
 }
 
-// The chain of residue class c mod 192: positions c + 192 m, m downwards,
-// carrying the pre-chain length and distance at +192, the links that
-// follow from there and the length at the chain's end; emit(p, final
-// length, distance) for each position.
-template <typename Emit>
-__device__ void chain_class(int c, int S, int limit, const int32_t* lp,
-                            const int32_t* dp, Emit emit) {
-  int la = 0, da = 0, ca = 0, ta = 0;
-  for (int m = (S - 1 - c) / kCapMax; m >= 0; m -= kAhead) {
-    int l[kAhead], d[kAhead];
+// the minimum of v over the block's threads after this one (S for the
+// last; sums: kWarps ints of shared memory)
+__device__ int block_min_after(int v, int S, int* sums, int tid) {
+  const int lane = tid & 31, wid = tid >> 5;
+  int incl = v;   // the minimum over this lane and the warp's later lanes
 #pragma unroll
-    for (int k = 0; k < kAhead; ++k) {
-      if (m - k >= 0) {
-        l[k] = lp[c + kCapMax * (m - k)];
-        d[k] = dp[c + kCapMax * (m - k)];
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kAhead; ++k) {
-      if (m - k < 0) break;
-      const int p = c + kCapMax * (m - k);
-      const bool cont = l[k] == kCapMax && da == d[k] && la > 0;
-      const int cnt = cont ? ca + 1 : 0;
-      const int term = cont ? ta : l[k];
-      emit(p, min(kCapMax * cnt + term, max(limit - p, 0)), d[k]);
-      la = l[k];
-      da = d[k];
-      ca = cnt;
-      ta = term;
-    }
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_down_sync(kFull, incl, off);
+    if (lane + off < 32) incl = min(incl, y);
   }
+  if (lane == 0) sums[wid] = incl;
+  __syncthreads();
+  if (wid == 0) {
+    int run = sums[lane];
+#pragma unroll
+    for (int off = 1; off < kWarps; off <<= 1) {
+      const int y = __shfl_down_sync(kFull, run, off);
+      if (lane + off < kWarps) run = min(run, y);
+    }
+    sums[lane] = run;
+  }
+  __syncthreads();
+  int out = __shfl_down_sync(kFull, incl, 1);
+  if (lane == 31) out = S;
+  if (wid + 1 < kWarps) out = min(out, sums[wid + 1]);
+  __syncthreads();
+  return out;
+}
+
+// after[k] for a bitmap of S bits: each thread a contiguous share of its
+// words, the first set bit past each word from the minimum over the later
+// shares
+template <typename Fin>
+__device__ void build_after(const uint32_t* bits, Fin* after, int S,
+                            int* sums, int tid) {
+  const int nw = (S + 31) >> 5;
+  const int share = (nw + kThreads - 1) / kThreads;
+  const int lo = min(nw, tid * share), hi = min(nw, lo + share);
+  auto first = [&](int k) {
+    return bits[k] ? min((k << 5) + __ffs(bits[k]) - 1, S) : S;
+  };
+  int m = S;
+  for (int k = hi - 1; k >= lo; --k) m = min(m, first(k));
+  int nxt = block_min_after(m, S, sums, tid);
+  for (int k = hi - 1; k >= lo; --k) {
+    after[k] = static_cast<Fin>(nxt < S ? nxt : 0);
+    nxt = min(nxt, first(k));
+  }
+}
+
+// What the finish block reads of a page: the families' results, the run
+// breaks (a bit a position where no distance-1 run continues: p = 0, p at
+// or past the page's size, or byte p != byte p - 1) with the first break
+// past each word, and the fold's cap.
+template <typename Fin>
+struct Page {
+  const uint32_t* res0;
+  const uint32_t* res1;
+  const uint32_t* brk;
+  const Fin* brk_after;
+  int S, limit, maxb;
+};
+
+// position p's length and distance before the chain: family 0's winner,
+// family 1's only where its capped prefix is strictly longer, then the
+// distance-1 run at p (to the next break) where it is strictly longer
+template <typename Fin>
+__device__ inline void fold(const Page<Fin>& g, int p, int& len, int& dist) {
+  const uint32_t r0 = g.res0[p];   // 0 where family 0 has no key or probe
+  const uint32_t r1 = g.res1[p];
+  const int l0 = static_cast<int>(r0 >> kLenShift);
+  const int l1 = static_cast<int>(r1 >> kLenShift);
+  const bool second = min(l1, g.maxb) > min(l0, g.maxb);
+  len = second ? l1 : l0;
+  dist = static_cast<int>((second ? r1 : r0) & kDistMask);
+  const int run =
+      bit(g.brk, p) ? 0 : next_set(g.brk, g.brk_after, p, g.S) - p;
+  if (run > len) {
+    len = run;
+    dist = 1;
+  }
+}
+
+template <typename Fin>
+__device__ inline int dist_at(const Page<Fin>& g, int p) {
+  int len, dist;
+  fold(g, p, len, dist);
+  return dist;
 }
 
 // the cover's segments: kSegs a page, their node lists' capacity
@@ -582,83 +697,251 @@ __host__ __device__ inline int seg_bytes(int S) {
   return (S + kSegs - 1) / kSegs;
 }
 __host__ __device__ inline int seg_cap(int S) { return seg_bytes(S) / 4 + 2; }
+// entries of a page's per-word arrays (a word a 32 positions), rounded up
+// to keep what follows them aligned
+__host__ __device__ inline int words_room(int S) {
+  return (((S + 31) >> 5) + 3) & ~3;
+}
+// the node lists' room, in elements of 2 (up to 64 KiB pages) or 4 bytes:
+// the lists, or the chain's segment records (4 ints a thread) before them
+__host__ __device__ inline int node_room(int S, int elem) {
+  const int lists = 2 * kSegs * seg_cap(S), records = 4 * kThreads * 4 / elem;
+  return lists > records ? lists : records;
+}
 
-__global__ void __launch_bounds__(kFinishThreads)
-    finish_kernel(const int32_t* __restrict__ in_sizes, int S, int max_cmds,
-                  int cap, int32_t* __restrict__ lens,
-                  const int32_t* __restrict__ dists, int32_t* __restrict__ step,
-                  int32_t* __restrict__ nodes, int32_t* __restrict__ ins,
+template <typename Fin>
+__global__ void __launch_bounds__(kThreads, 1)
+    finish_kernel(const uint8_t* __restrict__ pages,
+                  const int32_t* __restrict__ in_sizes, int S, int parts,
+                  int max_cmds, int cap, int maxb,
+                  const uint32_t* __restrict__ res,
+                  const uint32_t* __restrict__ near,
+                  const uint32_t* __restrict__ bits, Fin* __restrict__ gfin,
+                  Fin* __restrict__ gnodes, int32_t* __restrict__ ins,
                   int32_t* __restrict__ cpy, int32_t* __restrict__ dist,
-                  int32_t* __restrict__ ncmds,
-                  int32_t* __restrict__ cand_len) {
-  extern __shared__ uint32_t smem[];
-  const int tid = threadIdx.x;
-  if (cand_len != nullptr) {
-    // the candidates: slot 0 of each position, a warp of classes a block
-    const int page = blockIdx.x / kChainGroups;
-    const int c = (blockIdx.x % kChainGroups) * 32 + tid;
-    const int limit = clamp_limit(in_sizes, page, S);
-    const size_t row = static_cast<size_t>(page) * S;
-    if (c < S)
-      chain_class(c, S, limit, lens + row, dists + row,
-                  [&](int p, int fin, int) {
-                    const int v = min(fin, cap);
-                    cand_len[(row + p) * kSlots] = v >= kMinMatch ? v : 0;
-                  });
-    return;
-  }
-  const int page = blockIdx.x;
+                  int32_t* __restrict__ ncmds, int32_t* __restrict__ cand_len,
+                  int32_t* __restrict__ cand_dist) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int page = blockIdx.x / parts, share = blockIdx.x % parts;
   const int limit = clamp_limit(in_sizes, page, S);
-  const int nw = (S + 31) >> 5, nu = (nw + 31) >> 5;
+  const int nw = (S + 31) >> 5, nwa = words_room(S);
   const int seg = seg_bytes(S), scap = seg_cap(S);
-  uint32_t* bm = smem;                     // [nw] taken positions
-  uint32_t* l1 = bm + nw;                  // [nu] nonzero words of bm
-  uint32_t* onpath = l1 + nu;              // [nw] the segment walkers' nodes
-  int* cnts = reinterpret_cast<int*>(onpath + nw);  // [kSegs] walker nodes
+  const bool cands = cand_len != nullptr;
+  constexpr bool kOnChip = sizeof(Fin) == 2;   // S <= 64 KiB
+  uint32_t* brk = smem;                    // [nwa] run breaks
+  int* sums = reinterpret_cast<int*>(brk + nwa);   // [kWarps]
+  int* cnts = sums + kWarps;               // [kSegs] walker nodes
   int* exits = cnts + kSegs;               // [kSegs] walker's first past it
   int* pcount = exits + kSegs;             // [kSegs] nodes before the join
   int* join = pcount + kSegs;              // [kSegs] join node, or -1
   int* from = join + kSegs;                // [kSegs] join's walker index
   int* off = from + kSegs;                 // [kSegs + 1] first command
   int* pend = off + kSegs + 1;             // [kSegs] end before the segment
-  int* count = pend + kSegs;               // [1] the commands kept
-  uint16_t* step16 = reinterpret_cast<uint16_t*>(count + 4);  // [S], small
-  const bool small = S <= kSmallPage;
-  int32_t* lp = lens + static_cast<size_t>(page) * S;
-  const int32_t* dp = dists + static_cast<size_t>(page) * S;
-  int32_t* sg = step + static_cast<size_t>(page) * S;
-  int32_t* walk = nodes + static_cast<size_t>(page) * 2 * kSegs * scap;
-  int32_t* pre = walk + kSegs * scap;
-  for (int j = tid; j < 2 * nw + nu; j += kFinishThreads) bm[j] = 0;
-  __syncthreads();
+  int* count = pend + kSegs;               // [3] the commands kept
+  Fin* brk_after = reinterpret_cast<Fin*>(count + 3);   // [nwa]
+  // fin: the lengths before and after the chain, [S]
+  Fin* fin = kOnChip ? brk_after + nwa : gfin + static_cast<size_t>(page) * S;
+  // the rest: for the cover the taken positions, the chain links (then
+  // the segment walkers' nodes), the first taken position past each word
+  // and the node lists ([kSegs][scap] the walkers' nodes, then the true
+  // path's before each join; the chain's segment records before them);
+  // for the candidates the chain links and records
+  uint32_t* rest = reinterpret_cast<uint32_t*>(kOnChip ? fin + S : fin);
+  if (!kOnChip) rest = reinterpret_cast<uint32_t*>(brk_after + nwa);
+  uint32_t* bm = cands ? nullptr : rest;
+  uint32_t* onpath = cands ? rest : rest + nwa;
+  Fin* bm_after = reinterpret_cast<Fin*>(rest + 2 * nwa);
+  Fin* walk = kOnChip ? bm_after + nwa
+                      : gnodes + static_cast<size_t>(page) * node_room(S, 4);
+  Fin* pre = walk + kSegs * scap;
+  int* rec = cands && kOnChip ? reinterpret_cast<int*>(rest + nwa)
+                              : reinterpret_cast<int*>(walk);
+  const int nwb = (S + 31) >> 5;
+  const Page<Fin> g{res + static_cast<size_t>(page) * kFamilies * S,
+                    res + (static_cast<size_t>(page) * kFamilies + 1) * S,
+                    brk, brk_after, S, limit, maxb};
+  const size_t row = static_cast<size_t>(page) * S;
 
-  // ---- the chain, and the taken positions ----
-  if (tid < kWalkers && tid < S)
-    chain_class(tid, S, limit, lp, dp, [&](int p, int fin, int) {
-      lp[p] = fin;
-      if (fin >= kMinMatch && p + fin <= limit)
-        atomicOr(&bm[p >> 5], 1u << (p & 31));
-    });
-  __syncthreads();
-  for (int j = tid; j < nw; j += kFinishThreads)
-    if (bm[j]) atomicOr(&l1[j >> 5], 1u << (j & 31));
-  __syncthreads();
-
-  // ---- each taken position's successor: the first taken position at or
-  // after its end ----
-  for (int p = tid; p < S; p += kFinishThreads) {
-    if (!(bm[p >> 5] >> (p & 31) & 1)) continue;
-    const int s = next_taken(bm, l1, p + lp[p], S);
-    if (small)
-      step16[p] = s < S ? static_cast<uint16_t>(s) : kNoStep;
-    else
-      sg[p] = s;
+  // ---- the run breaks ----
+  const uint32_t* src = reinterpret_cast<const uint32_t*>(pages + row);
+  for (int j = tid; j < nw; j += kThreads) {
+    const int p0 = j << 5;
+    uint32_t prev = p0 > 0 ? src[(p0 >> 2) - 1] >> 24 : 0;
+    uint32_t m = 0;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int wi = (p0 >> 2) + k;
+      const uint32_t v = wi < (S >> 2) ? src[wi] : 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int p = p0 + 4 * k + b;
+        const uint32_t cur = (v >> (8 * b)) & 255;
+        if (!(p >= 1 && p < limit && cur == prev)) m |= 1u << (4 * k + b);
+        prev = cur;
+      }
+    }
+    brk[j] = m;
   }
   __syncthreads();
+  build_after(brk, brk_after, S, sums, tid);
+  __syncthreads();
+
+  // ---- the fold: each position's length before the chain, and the chain
+  // links: a length of exactly 192 whose continuation at +192 has a length
+  // and the same distance (a warp's 32 positions are one word of links) ----
+  for (int p0 = tid; p0 - lane < S; p0 += 4 * kThreads) {
+    int len[4], d[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (p0 + u * kThreads < S) fold(g, p0 + u * kThreads, len[u], d[u]);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int p = p0 + u * kThreads;
+      bool link = false;
+      if (p < S) {
+        fin[p] = static_cast<Fin>(len[u]);
+        if (len[u] == kCapMax && p + kCapMax < S) {
+          int l2, d2;
+          fold(g, p + kCapMax, l2, d2);
+          link = l2 > 0 && d2 == d[u];
+        }
+      }
+      const unsigned m = __ballot_sync(kFull, link);
+      if (lane == 0 && p < S) onpath[p >> 5] = m;
+    }
+  }
+  __syncthreads();
+
+  // ---- the chain: residue class c mod 192 is the positions c + 192 m, a
+  // link at p joins p's 192 bytes to what follows from p + 192: walked
+  // downwards, a position's links to the chain's end (cnt) and the length
+  // there (term). Each class in kLinks segments of m, one a thread: a
+  // segment settles its positions below its first unlinked one, and
+  // records how many above it wait for what comes in from the segment
+  // above; one thread a class then passes the (cnt, term) down the
+  // segments, and the waiting positions are settled. ----
+  auto settle = [&](int p, int cnt, int term) {
+    fin[p] = static_cast<Fin>(min(kCapMax * cnt + term, max(limit - p, 0)));
+  };
+  const int cls = tid % kWalkers, part = tid / kWalkers;
+  const int nm = cls < S ? (S - 1 - cls) / kCapMax + 1 : 0;
+  const int span = (nm + kLinks - 1) / kLinks;
+  const int mlo = min(nm, part * span), mhi = min(nm, mlo + span);
+  if (part < kLinks) {
+    int lead = 0, cnt = 0, term = 0;
+    bool known = false;
+    for (int m = mhi - 1; m >= mlo; --m) {
+      const int p = cls + kCapMax * m;
+      const int l = static_cast<int>(fin[p]);
+      if (!bit(onpath, p)) {
+        known = true;
+        cnt = 0;
+        term = l;
+      } else if (known) {
+        ++cnt;
+      } else {
+        ++lead;
+        continue;
+      }
+      settle(p, cnt, term);
+    }
+    rec[4 * tid] = lead;
+    rec[4 * tid + 1] = cnt;
+    rec[4 * tid + 2] = term;
+    rec[4 * tid + 3] = known;
+  }
+  __syncthreads();
+  if (tid < kWalkers) {   // (cnt, term) into each segment, from the top
+    int cnt = 0, term = 0;
+    for (int k = kLinks - 1; k >= 0; --k) {
+      int* x = rec + 4 * (k * kWalkers + tid);
+      const int lead = x[0], ocnt = x[1], oterm = x[2], known = x[3];
+      x[1] = cnt;
+      x[2] = term;
+      if (known) {
+        cnt = ocnt;
+        term = oterm;
+      } else {
+        cnt += lead;
+      }
+    }
+  }
+  __syncthreads();
+  if (part < kLinks && rec[4 * tid] > 0) {   // the waiting positions
+    int cnt = rec[4 * tid + 1];
+    const int term = rec[4 * tid + 2];
+    for (int m = mhi - 1; m >= mhi - rec[4 * tid]; --m)
+      settle(cls + kCapMax * m, ++cnt, term);
+  }
+  __syncthreads();
+
+  if (cands) {
+    // ---- the candidates' rows of this block's share, each written once:
+    // slot 0 the chained length and the fold's distance; slots 1-7 the
+    // families' near probes, gated and clipped to cap ----
+    const int chunk = (S + parts - 1) / parts;
+    for (int p = share * chunk + tid; p < min(S, (share + 1) * chunk);
+         p += kThreads) {
+      const uint32_t* nr = near + (row + p) * kSlots;
+      const uint32_t* has = bits + presence(page, 0, nwb);
+      const uint4 a = bit(has, p) ? *reinterpret_cast<const uint4*>(nr)
+                                  : make_uint4(0, 0, 0, 0);
+      const uint2 b = bit(has + nwb, p)
+                          ? *reinterpret_cast<const uint2*>(nr + 4)
+                          : make_uint2(0, 0);
+      const uint2 c = bit(has + 2 * nwb, p)
+                          ? *reinterpret_cast<const uint2*>(nr + 6)
+                          : make_uint2(0, 0);
+      const uint32_t v[kSlots - 1] = {a.x, a.y, a.z, b.x, b.y, c.x, c.y};
+      int L[kSlots], D[kSlots];
+      const int v0 = min(static_cast<int>(fin[p]), cap);
+      L[0] = v0 >= kMinMatch ? v0 : 0;
+      D[0] = dist_at(g, p);
+#pragma unroll
+      for (int j = 0; j < kSlots - 1; ++j) {
+        const int ml = static_cast<int>(v[j] >> kLenShift);
+        int x;
+        if (j >= 5) {   // the 3-byte family's slots
+          x = min(ml >= 2 ? ml : 0, cap);
+        } else {
+          x = min(ml, cap);
+          x = x >= kMinMatch ? x : 0;
+        }
+        L[j + 1] = x;
+        D[j + 1] = static_cast<int>(v[j] & kDistMask);
+      }
+      int4* cl = reinterpret_cast<int4*>(cand_len + (row + p) * kSlots);
+      int4* cd = reinterpret_cast<int4*>(cand_dist + (row + p) * kSlots);
+      cl[0] = make_int4(L[0], L[1], L[2], L[3]);
+      cl[1] = make_int4(L[4], L[5], L[6], L[7]);
+      cd[0] = make_int4(D[0], D[1], D[2], D[3]);
+      cd[1] = make_int4(D[4], D[5], D[6], D[7]);
+    }
+    return;
+  }
+  // ---- the taken positions: a match of at least 4 bytes inside the page
+  // (a warp a word, a lane a position) ----
+  for (int j = wid; j < nw; j += kWarps) {
+    const int p = (j << 5) + lane;
+    bool taken = false;
+    if (p < S) {
+      const int fl = static_cast<int>(fin[p]);
+      taken = fl >= kMinMatch && p + fl <= limit;
+    }
+    const unsigned m = __ballot_sync(kFull, taken);
+    if (lane == 0) {
+      bm[j] = m;
+      onpath[j] = 0;
+    }
+  }
+  __syncthreads();
+  build_after(bm, bm_after, S, sums, tid);
+  __syncthreads();
+  // a taken position's successor: the first taken position at or after
+  // its end
   auto succ = [&](int i) {
-    if (!small) return static_cast<int>(sg[i]);
-    const uint16_t s = step16[i];
-    return s == kNoStep ? S : static_cast<int>(s);
+    return next_set(bm, bm_after, i + static_cast<int>(fin[i]), S);
   };
 
   // ---- the cover, in segments: walker k follows the successors from the
@@ -666,9 +949,9 @@ __global__ void __launch_bounds__(kFinishThreads)
   // nodes; a path that reaches one of them follows the walker from there ----
   if (tid < kSegs) {
     const int hi = min(S, (tid + 1) * seg);
-    int x = next_taken(bm, l1, tid * seg, S), n = 0;
+    int x = next_set(bm, bm_after, tid * seg, S), n = 0;
     while (x < hi) {
-      walk[tid * scap + n++] = x;
+      walk[tid * scap + n++] = static_cast<Fin>(x);
       atomicOr(&onpath[x >> 5], 1u << (x & 31));
       x = succ(x);
     }
@@ -680,12 +963,12 @@ __global__ void __launch_bounds__(kFinishThreads)
   // until it joins that segment's walker (at once where it enters at the
   // walker's start), then from the walker's exit
   if (tid == 0) {
-    int t = next_taken(bm, l1, 0, S);
+    int t = next_set(bm, bm_after, 0, S);
     for (int k = 0; k < kSegs; ++k) {
       const int hi = min(S, (k + 1) * seg);
       int p = 0;
-      while (t < hi && !(onpath[t >> 5] >> (t & 31) & 1)) {
-        pre[k * scap + p++] = t;
+      while (t < hi && !bit(onpath, t)) {
+        pre[k * scap + p++] = static_cast<Fin>(t);
         t = succ(t);
       }
       pcount[k] = p;
@@ -694,38 +977,45 @@ __global__ void __launch_bounds__(kFinishThreads)
     }
   }
   __syncthreads();
-  // where each join falls in its walker's list: the walker's nodes before
-  // it (its marks in the segment)
+  auto node = [&](int k, int i) {
+    return static_cast<int>(i < pcount[k]
+                                ? pre[k * scap + i]
+                                : walk[k * scap + from[k] + i - pcount[k]]);
+  };
+  // where each join falls in its walker's list (the walker's marks in the
+  // segment before it), the segment's commands, and the end of its last
   if (tid < kSegs) {
-    int j = 0;
+    int j = cnts[tid];
     if (join[tid] >= 0) {
       const int lo = tid * seg, y = join[tid];
-      for (int w = lo >> 5; y > lo && w <= (y - 1) >> 5; ++w) {
-        uint32_t bits = onpath[w];
-        if (w == lo >> 5) bits &= kFull << (lo & 31);
-        if (w == (y - 1) >> 5) bits &= kFull >> (31 - ((y - 1) & 31));
+      j = 0;
+      for (int wv = lo >> 5; y > lo && wv <= (y - 1) >> 5; ++wv) {
+        uint32_t bits = onpath[wv];
+        if (wv == lo >> 5) bits &= kFull << (lo & 31);
+        if (wv == (y - 1) >> 5) bits &= kFull >> (31 - ((y - 1) & 31));
         j += __popc(bits);
       }
-      from[tid] = j;
+    }
+    from[tid] = j;
+    const int c = pcount[tid] + cnts[tid] - j;
+    off[tid] = c;
+    if (c > 0) {
+      const int last = node(tid, c - 1);
+      pend[tid] = last + static_cast<int>(fin[last]);
     } else {
-      from[tid] = cnts[tid];
+      pend[tid] = -1;
     }
   }
   __syncthreads();
-  auto node = [&](int k, int i) {
-    return i < pcount[k] ? pre[k * scap + i]
-                         : walk[k * scap + from[k] + i - pcount[k]];
-  };
+  // the segments' first commands and the end before each (thread 0 over
+  // the 64 counts)
   if (tid == 0) {
     int total = 0, end = 0;
     for (int k = 0; k < kSegs; ++k) {
+      const int c = off[k], e = pend[k];
       off[k] = total;
       pend[k] = end;
-      const int c = pcount[k] + cnts[k] - from[k];
-      if (c > 0) {
-        const int last = node(k, c - 1);
-        end = last + lp[last];
-      }
+      if (c > 0) end = e;
       total += c;
     }
     off[kSegs] = total;
@@ -734,8 +1024,8 @@ __global__ void __launch_bounds__(kFinishThreads)
   }
   __syncthreads();
   const int n = *count;
-  const size_t row = static_cast<size_t>(page) * max_cmds;
-  for (int o = tid; o < max_cmds; o += kFinishThreads) {
+  const size_t orow = static_cast<size_t>(page) * max_cmds;
+  for (int o = tid; o < max_cmds; o += kThreads) {
     int a = 0, b = 0, c = 0;
     if (o < n) {
       int lo = 0, hi = kSegs - 1;   // the last segment starting at or before o
@@ -748,36 +1038,90 @@ __global__ void __launch_bounds__(kFinishThreads)
       int prev_end = pend[lo];
       if (i > 0) {
         const int q = node(lo, i - 1);
-        prev_end = q + lp[q];
+        prev_end = q + static_cast<int>(fin[q]);
       }
       a = pos - prev_end;
-      b = lp[pos];
-      c = dp[pos];
+      b = static_cast<int>(fin[pos]);
+      c = dist_at(g, pos);
     }
-    ins[row + o] = a;
-    cpy[row + o] = b;
-    dist[row + o] = c;
+    ins[orow + o] = a;
+    cpy[orow + o] = b;
+    dist[orow + o] = c;
   }
 }
 
-// dynamic shared memory of each kernel, in bytes
-long long hist_smem() {
-  return 4LL * (kSortWarps * kDigits + kTileWords + 2);
+// Where a call's scratch keeps what (int32 words): the families' results;
+// for the candidates the near probes (a row of 8 words a position); the
+// presence bitmaps; past 64 KiB pages the sort's slots, the lengths and
+// the node lists.
+struct Layout {
+  long long res, near, bits, slots, fin, nodes, total;
+};
+
+Layout layout(int P, int S, int nfam) {
+  const bool big = S > kSmallPage;
+  const long long pos = static_cast<long long>(P) * S;
+  Layout l{};
+  l.res = 0;
+  l.near = l.res + pos * kFamilies;
+  l.bits = l.near + (nfam > kFamilies ? pos * kSlots : 0);
+  l.slots = l.bits + static_cast<long long>(presence(P, 0, (S + 31) >> 5));
+  l.fin = l.slots + (big ? pos * nfam * 2 : 0);
+  l.nodes = l.fin + (big ? pos : 0);
+  l.total = l.nodes + (big ? static_cast<long long>(P) * node_room(S, 4) : 0);
+  return l;
 }
-long long scatter_smem() {
-  return 8LL * kTile +
-         4LL * (kSortWarps * kDigits + 2 * kDigits + kSortWarps +
-                kTileWords + 2);
-}
-long long probe_smem(int S) {
-  return 4LL * (kChunk + kProbeThreads + 4 + (S >> 2) + 2);
-}
-long long finish_smem(int S, bool cands) {
-  if (cands) return 0;
-  const long long nw = (S + 31) >> 5, nu = (nw + 31) >> 5;
-  long long bytes = 4 * (2 * nw + nu + 7 * kSegs + 5);
-  if (S <= kSmallPage) bytes += 2LL * S;
+
+// dynamic shared memory of each kernel, in bytes (sort_probe: a CTA of a
+// cluster of nc)
+long long sort_probe_smem(int S, int nc) {
+  long long bytes = 4LL * (S / 4 + 2 + kDigits + kWarps + kWarps * kDigits);
+  if (S <= kSmallPage)   // A's part and B's part, each after its halo
+    bytes += 2LL * 2 * (slot_part(S, nc) + kHalo);
   return bytes;
+}
+long long finish_smem(int S) {
+  const bool big = S > kSmallPage;
+  const long long nwa = words_room(S), fin = big ? 4 : 2;
+  const long long head = 4 * nwa + 4 * (kWarps + 7 * kSegs + 4) + fin * nwa +
+                         (big ? 0 : fin * S);
+  const long long cover =
+      8 * nwa + fin * nwa + (big ? 0 : fin * node_room(S, 2));
+  const long long cands = 4 * nwa + (big ? 0 : 16LL * kThreads);
+  return head + (cover > cands ? cover : cands);
+}
+
+int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return n;
+}
+
+// CTAs a (page, family) cluster: the most of 2, 4 and 8 whose CTAs, a
+// cluster each (page, family), number no more than the card's SMs, each
+// CTA's part at least the probes' halo (2 where none fits: the q1
+// batch's 64 families take 128 SMs). A CTA takes an SM of its own (its
+// shared memory), and the card places 66 clusters of 2, 30 of 4 and 15
+// of 8 at once (blg_match_max_clusters), so an 8-page batch's 16
+// clusters of 8 run as 15 and 1.
+int cluster_size(int P, int S, int nfam) {
+  const int sms = sm_count();
+  int nc = 2;
+  for (int c = 4; c <= kMaxCluster; c *= 2)
+    if (static_cast<long long>(P) * nfam * c <= sms && S / c >= kHalo) nc = c;
+  return nc;
+}
+
+// blocks a page of the finish kernel: for the candidates' rows (up to 64
+// KiB pages) as many as fill the card, up to 8, each block redoing its
+// page's chain; 1 for the cover
+int finish_parts(int P, int S, bool cands) {
+  if (!cands || S > kSmallPage) return 1;
+  const int n = sm_count() / P;
+  return n < 1 ? 1 : (n > 8 ? 8 : n);
 }
 
 template <typename K>
@@ -795,114 +1139,163 @@ int launch_error(cudaError_t e) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename Pos>
+int launch_sort_probe(const void* pages, const void* in_sizes, int P, int S,
+                      int nfam, int rank_words, int32_t* scratch,
+                      cudaStream_t stream) {
+  const int nc = cluster_size(P, S, nfam);
+  const long long smem = sort_probe_smem(S, nc);
+  cudaError_t e = set_smem(sort_probe_kernel<Pos>, smem);
+  if (e != cudaSuccess) return launch_error(e);
+  const Layout l = layout(P, S, nfam);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nc * P * nfam, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nc;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(
+      &cfg, sort_probe_kernel<Pos>, static_cast<const uint8_t*>(pages),
+      static_cast<const int32_t*>(in_sizes), S, nfam, rank_words,
+      reinterpret_cast<uint32_t*>(scratch + l.res),
+      S > kSmallPage ? reinterpret_cast<Pos*>(scratch + l.slots) : nullptr,
+      nfam > kFamilies ? reinterpret_cast<uint32_t*>(scratch + l.near)
+                       : nullptr,
+      reinterpret_cast<uint32_t*>(scratch + l.bits));
+  return launch_error(e);
+}
+
+template <typename Fin>
+int launch_finish(const void* pages, const void* in_sizes, int P, int S,
+                  int nfam, int max_cmds, int cap, int rank_words,
+                  int32_t* scratch, void* ins, void* cpy, void* dist,
+                  void* ncmds, void* cand_len, void* cand_dist,
+                  cudaStream_t stream) {
+  const long long smem = finish_smem(S);
+  cudaError_t e = set_smem(finish_kernel<Fin>, smem);
+  if (e != cudaSuccess) return launch_error(e);
+  const Layout l = layout(P, S, nfam);
+  const bool big = S > kSmallPage;
+  const int parts = finish_parts(P, S, cand_len != nullptr);
+  finish_kernel<Fin><<<P * parts, kThreads, smem, stream>>>(
+      static_cast<const uint8_t*>(pages), static_cast<const int32_t*>(in_sizes),
+      S, parts, max_cmds, cap, 4 * rank_words,
+      reinterpret_cast<const uint32_t*>(scratch + l.res),
+      nfam > kFamilies ? reinterpret_cast<const uint32_t*>(scratch + l.near)
+                       : nullptr,
+      reinterpret_cast<const uint32_t*>(scratch + l.bits),
+      big ? reinterpret_cast<Fin*>(scratch + l.fin) : nullptr,
+      big ? reinterpret_cast<Fin*>(scratch + l.nodes) : nullptr,
+      static_cast<int32_t*>(ins), static_cast<int32_t*>(cpy),
+      static_cast<int32_t*>(dist), static_cast<int32_t*>(ncmds),
+      static_cast<int32_t*>(cand_len), static_cast<int32_t*>(cand_dist));
+  return launch_error(cudaSuccess);
+}
+
 }  // namespace
 }  // namespace blg_match
 
-// Dynamic shared memory of the hist (0), scatter (1), probe (2) or finish
-// kernel (3: the cover, 4: the candidates) at page size S, in bytes.
-extern "C" long long blg_match_smem(int kernel, int S) {
+// Dynamic shared memory of the finish kernel at page size S, in bytes.
+extern "C" long long blg_match_finish_smem(int S) {
+  return blg_match::finish_smem(S);
+}
+
+// Blocks a page of the finish kernel for P pages of S bytes: the
+// candidates' rows (cands 1) or the cover (cands 0).
+extern "C" int blg_match_finish_parts(int P, int S, int cands) {
+  return blg_match::finish_parts(P, S, cands != 0);
+}
+
+// CTAs a cluster of the sort_probe kernel for P pages of S bytes and nfam
+// key families, and its dynamic shared memory a CTA.
+extern "C" int blg_match_cluster_size(int P, int S, int nfam) {
+  return blg_match::cluster_size(P, S, nfam);
+}
+extern "C" long long blg_match_sort_probe_smem(int S, int nc) {
+  return blg_match::sort_probe_smem(S, nc);
+}
+
+// Clusters of nc CTAs of the sort_probe kernel that the current device
+// holds at once at page size S (0 when the query fails).
+extern "C" int blg_match_max_clusters(int S, int nc) {
   using namespace blg_match;
-  switch (kernel) {
-    case 0: return hist_smem();
-    case 1: return scatter_smem();
-    case 2: return probe_smem(S);
-    default: return finish_smem(S, kernel == 4);
+  const long long smem = sort_probe_smem(S, nc);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nc * 256, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nc;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  const bool big = S > kSmallPage;
+  cudaError_t e = big ? set_smem(sort_probe_kernel<uint32_t>, smem)
+                      : set_smem(sort_probe_kernel<uint16_t>, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveClusters(
+        &n,
+        big ? reinterpret_cast<const void*>(sort_probe_kernel<uint32_t>)
+            : reinterpret_cast<const void*>(sort_probe_kernel<uint16_t>),
+        &cfg);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
   }
+  return n;
 }
 
-// Tiles of 4,096 positions a page's sort takes (the hist array's last
-// dimension).
-extern "C" int blg_match_tiles(int S) { return blg_match::sort_tiles(S); }
+// The int32 words of a call's scratch: nfam key families (2 for the cover,
+// 3 for the candidates) over P pages of S bytes.
+extern "C" long long blg_match_scratch_ints(int P, int S, int nfam) {
+  return blg_match::layout(P, S, nfam).total;
+}
 
-// Launch the hist kernel of a sort pass: one block a (page, family,
-// tile); nfam key families (2 for the cover, 3 for the candidates); in
-// the first pass's output for pass 1 (unread in pass 0).
-extern "C" int blg_match_hist(const void* pages, const void* in_sizes, int P,
-                              int S, int nfam, int pass, const void* in,
-                              void* hist, void* stream) {
+// Launch the sort_probe kernel: a cluster of 2, 4 or 8 CTAs a (page,
+// family) (blg_match_cluster_size); nfam 2 for the cover, 3 for the
+// candidates.
+extern "C" int blg_match_sort_probe(const void* pages, const void* in_sizes,
+                                    int P, int S, int nfam, int rank_words,
+                                    void* scratch, void* stream) {
   using namespace blg_match;
   if (P <= 0) return 0;
-  cudaError_t e = set_smem(hist_kernel, hist_smem());
-  if (e != cudaSuccess) return launch_error(e);
-  hist_kernel<<<P * nfam * sort_tiles(S), kSortThreads, hist_smem(),
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(pages), static_cast<const int32_t*>(in_sizes),
-      S, nfam, pass, static_cast<const uint64_t*>(in),
-      static_cast<int32_t*>(hist));
-  return launch_error(cudaSuccess);
+  int32_t* sc = static_cast<int32_t*>(scratch);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return S > kSmallPage
+             ? launch_sort_probe<uint32_t>(pages, in_sizes, P, S, nfam,
+                                           rank_words, sc, st)
+             : launch_sort_probe<uint16_t>(pages, in_sizes, P, S, nfam,
+                                           rank_words, sc, st);
 }
 
-// Launch the scatter kernel of a sort pass: pass 0 writes the pairs in
-// low-byte order to out, pass 1 (reading them from in) the sorted pairs
-// to out and each position's rank.
-extern "C" int blg_match_scatter(const void* pages, const void* in_sizes,
-                                 int P, int S, int nfam, int pass,
-                                 const void* hist, const void* in, void* out,
-                                 void* rank, void* stream) {
+// Launch the finish kernel: the commands (ins, cpy, dist [P, max_cmds],
+// ncmds [P]) for the cover, a block a page; the rows of cand_len and
+// cand_dist [P, S, 8] (non-null, lengths clipped to cap) for the
+// candidates, a page's rows split over the blocks that fill the card.
+extern "C" int blg_match_finish(const void* pages, const void* in_sizes,
+                                int P, int S, int nfam, int max_cmds, int cap,
+                                int rank_words, void* scratch, void* ins,
+                                void* cpy, void* dist, void* ncmds,
+                                void* cand_len, void* cand_dist,
+                                void* stream) {
   using namespace blg_match;
   if (P <= 0) return 0;
-  cudaError_t e = set_smem(scatter_kernel, scatter_smem());
-  if (e != cudaSuccess) return launch_error(e);
-  scatter_kernel<<<P * nfam * sort_tiles(S), kSortThreads, scatter_smem(),
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(pages), static_cast<const int32_t*>(in_sizes),
-      S, nfam, pass, static_cast<const int32_t*>(hist),
-      static_cast<const uint64_t*>(in), static_cast<uint64_t*>(out),
-      static_cast<int32_t*>(rank));
-  return launch_error(cudaSuccess);
-}
-
-// Launch the probe kernel: one block a (page, 4,096 positions). cand_len
-// and cand_dist null for the cover.
-extern "C" int blg_match_probe(const void* pages, const void* in_sizes, int P,
-                               int S, int nfam, int rank_words, int cap,
-                               const void* pairs, const void* rank, void* lens,
-                               void* dists, void* cand_len, void* cand_dist,
-                               void* stream) {
-  using namespace blg_match;
-  if (P <= 0) return 0;
-  const long long smem = probe_smem(S);
-  cudaError_t e = set_smem(probe_kernel, smem);
-  if (e != cudaSuccess) return launch_error(e);
-  const int nchunks = (S + kChunk - 1) / kChunk;
-  probe_kernel<<<P * nchunks, kProbeThreads, smem,
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(pages), static_cast<const int32_t*>(in_sizes),
-      S, nfam, rank_words, cap, static_cast<const uint64_t*>(pairs),
-      static_cast<const int32_t*>(rank), static_cast<int32_t*>(lens),
-      static_cast<int32_t*>(dists), static_cast<int32_t*>(cand_len),
-      static_cast<int32_t*>(cand_dist));
-  return launch_error(cudaSuccess);
-}
-
-// Node lists of the cover's segment walkers, int32 words a page (the nodes
-// scratch's last dimension).
-extern "C" long long blg_match_nodes_ints(int S) {
-  return 2LL * blg_match::kSegs * blg_match::seg_cap(S);
-}
-
-// Launch the finish kernel. For the cover, one block a page: step (int32
-// [P, S], read past 64 KiB pages only), nodes [P, blg_match_nodes_ints],
-// and the commands; for the candidates (cand_len non-null), a warp of
-// residue classes a block, slot 0's length of each position.
-extern "C" int blg_match_finish(const void* in_sizes, int P, int S,
-                                int max_cmds, int cap, void* lens,
-                                const void* dists, void* step, void* nodes,
-                                void* ins, void* cpy, void* dist, void* ncmds,
-                                void* cand_len, void* stream) {
-  using namespace blg_match;
-  if (P <= 0) return 0;
-  const long long smem = finish_smem(S, cand_len != nullptr);
-  cudaError_t e = set_smem(finish_kernel, smem);
-  if (e != cudaSuccess) return launch_error(e);
-  const bool cands = cand_len != nullptr;
-  finish_kernel<<<cands ? P * kChainGroups : P, cands ? 32 : kFinishThreads,
-                  smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(in_sizes), S, max_cmds, cap,
-      static_cast<int32_t*>(lens), static_cast<const int32_t*>(dists),
-      static_cast<int32_t*>(step), static_cast<int32_t*>(nodes),
-      static_cast<int32_t*>(ins), static_cast<int32_t*>(cpy),
-      static_cast<int32_t*>(dist), static_cast<int32_t*>(ncmds),
-      static_cast<int32_t*>(cand_len));
-  return launch_error(cudaSuccess);
+  int32_t* sc = static_cast<int32_t*>(scratch);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return S > kSmallPage
+             ? launch_finish<uint32_t>(pages, in_sizes, P, S, nfam, max_cmds,
+                                       cap, rank_words, sc, ins, cpy, dist,
+                                       ncmds, cand_len, cand_dist, st)
+             : launch_finish<uint16_t>(pages, in_sizes, P, S, nfam, max_cmds,
+                                       cap, rank_words, sc, ins, cpy, dist,
+                                       ncmds, cand_len, cand_dist, st);
 }

@@ -4,10 +4,12 @@ ops/encode.py::find_commands and find_candidates call them on CUDA tensors
 (their plain versions, find_commands_plain / find_candidates_plain, run on
 CPU tensors). They replace the JAX package's compiled find_commands and
 find_candidates over _scan_matches (brotlig_tpu/ops/encode.py:142, :339,
-:360), which have no Pallas kernel. A call makes six launches of the
-file's four kernels, each counted under ``_kernels.LAUNCHES["match"]``:
-the two passes of the sort (hist, scatter; hist, scatter), probe and
-finish.
+:360), which have no Pallas kernel. A call makes two launches, each
+counted under ``_kernels.LAUNCHES["match"]``: sort_probe (a cluster of 2,
+4 or 8 CTAs a page and key family: the family's sort and its probes on
+chip) and finish (a block a page: the runs, the fold, the chain, and the
+cover or the candidates' rows). A call allocates one scratch tensor
+beside its outputs.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import torch
 
 from .. import _kernels
 
-LAUNCHES_PER_CALL = 6
+LAUNCHES_PER_CALL = 2
 FAMILIES_COVER = 2          # the 4- and 8-byte key families
 FAMILIES_CANDIDATES = 3     # and the 3-byte one
 EXACT_WORDS = 16            # candidate ranking words: MAX_MATCH_WORDS
@@ -47,37 +49,17 @@ def _operands(pages, in_sizes):
                               dtype=torch.int32).contiguous()
 
 
-def _sort_and_probe(pages, sizes, nfam: int, rank_words: int, cap: int,
-                    cand_len=None, cand_dist=None):
-    """Launch the sort (two passes of hist and scatter) and the probe
-    kernel; returns the per-position (lens, dists) int32 [P, S] the finish
-    kernel reads."""
+def _sort_probe(pages, sizes, nfam: int, rank_words: int):
+    """Launch sort_probe; returns the call's scratch (the families' words,
+    and the candidates' near probes, that the finish kernel reads)."""
     P, S = pages.shape
-    dev = pages.device
-    lib = _kernels.library()
-    hist = torch.empty((P, nfam, 256, lib.blg_match_tiles(S)),
-                       dtype=torch.int32, device=dev)
-    pairs1 = torch.empty((P, nfam, 2 * S), dtype=torch.int32, device=dev)
-    pairs2 = torch.empty_like(pairs1)
-    rank = torch.empty((P, nfam, S), dtype=torch.int32, device=dev)
-    lens = torch.empty((P, S), dtype=torch.int32, device=dev)
-    dists = torch.empty_like(lens)
-    out = [] if cand_len is None else [cand_len, cand_dist]
-    _kernels.check_cuda_args(pages, sizes, hist, pairs1, pairs2, rank, lens,
-                             dists, *out)
-    common = (pages.data_ptr(), sizes.data_ptr(), P, S, nfam)
-    for pas, src, dst in ((0, pairs1, pairs1), (1, pairs1, pairs2)):
-        _kernels.launch("match", "blg_match_hist", dev, *common, pas,
-                        src.data_ptr(), hist.data_ptr())
-        _kernels.launch("match", "blg_match_scatter", dev, *common, pas,
-                        hist.data_ptr(), src.data_ptr(), dst.data_ptr(),
-                        rank.data_ptr())
-    _kernels.launch("match", "blg_match_probe", dev, *common, rank_words,
-                    cap, pairs2.data_ptr(), rank.data_ptr(), lens.data_ptr(),
-                    dists.data_ptr(),
-                    *[None if t is None else t.data_ptr()
-                      for t in (cand_len, cand_dist)])
-    return lens, dists
+    scratch = torch.empty(_kernels.library().blg_match_scratch_ints(
+        P, S, nfam), dtype=torch.int32, device=pages.device)
+    _kernels.check_cuda_args(pages, sizes, scratch)
+    _kernels.launch("match", "blg_match_sort_probe", pages.device,
+                    pages.data_ptr(), sizes.data_ptr(), P, S, nfam,
+                    rank_words, scratch.data_ptr())
+    return scratch
 
 
 def find_commands_cuda(pages, in_sizes, max_cmds: int, fast: bool = False):
@@ -91,21 +73,19 @@ def find_commands_cuda(pages, in_sizes, max_cmds: int, fast: bool = False):
     pages, sizes = _operands(pages, in_sizes)
     P, S = pages.shape
     dev = pages.device
+    words = FAST_WORDS if fast else EXACT_WORDS
+    # sort_probe first: the card starts on it while the outputs are made
+    scratch = _sort_probe(pages, sizes, FAMILIES_COVER, words) if P else None
     ins, cpy, dist = (torch.empty((P, max_cmds), dtype=torch.int32,
                                   device=dev) for _ in range(3))
     ncmds = torch.empty(P, dtype=torch.int32, device=dev)
     if P == 0:
         return ins, cpy, dist, ncmds
-    lens, dists = _sort_and_probe(pages, sizes, FAMILIES_COVER,
-                                  FAST_WORDS if fast else EXACT_WORDS, 0)
-    nodes = torch.empty((P, _kernels.library().blg_match_nodes_ints(S)),
-                        dtype=torch.int32, device=dev)
-    step = torch.empty((P, S), dtype=torch.int32, device=dev)
-    _kernels.check_cuda_args(nodes, step, ins, cpy, dist, ncmds)
-    _kernels.launch("match", "blg_match_finish", dev, sizes.data_ptr(), P,
-                    S, max_cmds, 0, lens.data_ptr(), dists.data_ptr(),
-                    step.data_ptr(), nodes.data_ptr(), ins.data_ptr(),
-                    cpy.data_ptr(), dist.data_ptr(), ncmds.data_ptr(), None)
+    _kernels.check_cuda_args(ins, cpy, dist, ncmds)
+    _kernels.launch("match", "blg_match_finish", dev, pages.data_ptr(),
+                    sizes.data_ptr(), P, S, FAMILIES_COVER, max_cmds, 0,
+                    words, scratch.data_ptr(), ins.data_ptr(), cpy.data_ptr(),
+                    dist.data_ptr(), ncmds.data_ptr(), None, None)
     return ins, cpy, dist, ncmds
 
 
@@ -118,13 +98,15 @@ def find_candidates_cuda(pages, in_sizes, cap: int):
     pages, sizes = _operands(pages, in_sizes)
     P, S = pages.shape
     dev = pages.device
+    scratch = (_sort_probe(pages, sizes, FAMILIES_CANDIDATES, EXACT_WORDS)
+               if P else None)
     cand_len = torch.empty((P, S, 8), dtype=torch.int32, device=dev)
     cand_dist = torch.empty_like(cand_len)
     if P == 0:
         return cand_len, cand_dist
-    lens, dists = _sort_and_probe(pages, sizes, FAMILIES_CANDIDATES,
-                                  EXACT_WORDS, cap, cand_len, cand_dist)
-    _kernels.launch("match", "blg_match_finish", dev, sizes.data_ptr(), P,
-                    S, 1, cap, lens.data_ptr(), dists.data_ptr(), None, None,
-                    None, None, None, None, cand_len.data_ptr())
+    _kernels.check_cuda_args(cand_len, cand_dist)
+    _kernels.launch("match", "blg_match_finish", dev, pages.data_ptr(),
+                    sizes.data_ptr(), P, S, FAMILIES_CANDIDATES, 1, cap,
+                    EXACT_WORDS, scratch.data_ptr(), None, None, None, None,
+                    cand_len.data_ptr(), cand_dist.data_ptr())
     return cand_len, cand_dist

@@ -44,7 +44,7 @@ cuda:0, then in a one-rank NCCL group, every rank's lists equal to the
 inputs; and both profile tools (brotlig_tpu_torch/tools) once, small.
 
 Then it encodes on the card (the matcher is the hand-written kernels of
-csrc/match.cu, six launches a call, the serializer the hand-written
+csrc/match.cu, two launches a call, the serializer the hand-written
 kernel csrc/pack.cu, one launch a batch): the
 full-device q1 path, encode_pages_device(quality=1), on 32 pages of the
 corpus, its matcher, serializer and host stages timed, its aten ops,
@@ -71,10 +71,13 @@ design's time, with its clock cycles by phase, the size cases its
 pages took and its build's registers, spills and shared memory. Then the
 matcher's kernels are held to their plain versions on the card
 (tolerance 0) on the q1 batch (fast tier), the q11 batch (exact tier and
-find_candidates) and the texture's first q1 and q11 batches, their six
-raw launches timed beside the plain version and the bound (bytes, and
-the probes the data needs), and their launches on the q1, hybrid, q11
-and texture paths checked (six a call). Every
+find_candidates), the texture's first q1 and q11 batches and corpus
+pages of 32 and 128 KiB (each tier and find_candidates), their two
+raw launches timed beside the first design's six, the plain version, the bound
+(bytes, and the probes the data needs), the bytes the design moves and,
+beside the sort phase, a torch.sort of the same keys, and their
+launches on the q1, hybrid, q11 and texture paths checked (two a call).
+Every
 stream encoded on the card is decoded on
 the card on both routes, with the launch counts checked, and those
 launches join the kernels line.
@@ -1604,21 +1607,58 @@ def pack_phase(batches: dict, gpu) -> dict:
 # key family (its hash and two counting passes of the sort)
 OPS_PER_PROBE = 6
 OPS_PER_KEY = 8
+# the matcher's first design (six launches: a tiled sort's four, probe,
+# finish) on the same batches, ms by phase, sort / probe / finish (this
+# script's raw launches on an NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
+# section 6)
+MATCH_FIRST = {"q1": (0.2358, 0.2123, 0.1156),
+              "q11 greedy": (0.0770, 0.1713, 0.1051),
+              "q11 candidates": (0.1000, 0.1907, 0.0365),
+              "texture q1": (0.4233, 0.1901, 0.1252),
+              "texture q11 candidates": (0.6186, 0.3982, 0.1048)}
 
 
 def match_kernel_report() -> str:
-    """ptxas's registers, stack and spills of the matcher's four kernels,
-    from the build log."""
+    """ptxas's registers, stack and spills of the matcher's kernels (each
+    instance: uint16 slots up to 64 KiB pages, uint32 past them), the
+    finish kernel's dynamic shared memory at 64 and 128 KiB pages, and for
+    each sort_probe cluster size its shared memory a CTA and the clusters
+    the card holds at once."""
     from brotlig_tpu_torch import _kernels
+    lib = _kernels.library()
     found, name = [], None
     for line in _kernels.BUILD_LOG.splitlines():
         if "Compiling entry function" in line:
-            name = next((k for k in ("hist", "scatter", "probe", "finish")
-                         if f"{k}_kernel" in line and "blg_match" in line),
+            name = next((f"{k}<{w}>" for k in ("sort_probe", "finish")
+                         for w, m in (("uint16", "t"), ("uint32", "j"))
+                         if f"{k}_kernelI{m}" in line and "blg_match" in line),
                         None)
         elif name and ("registers" in line or "spill" in line):
             found.append(f"{name}: {line.split(':', 1)[-1].strip()}")
-    return "; ".join(found) or "not in the build log"
+    clusters = "; ".join(
+        f"{nc} CTAs: {lib.blg_match_sort_probe_smem(PAGE, nc)} B a CTA, "
+        f"{lib.blg_match_max_clusters(PAGE, nc)} clusters at once at 64 KiB "
+        f"pages ({lib.blg_match_sort_probe_smem(2 * PAGE, nc)} B, "
+        f"{lib.blg_match_max_clusters(2 * PAGE, nc)} at 128 KiB)"
+        for nc in (2, 4, 8))
+    return ("; ".join(found) or "not in the build log") + (
+        f"; finish dynamic shared memory {lib.blg_match_finish_smem(PAGE)} "
+        f"B a block at 64 KiB pages, {lib.blg_match_finish_smem(2 * PAGE)} "
+        f"at 128 KiB; sort_probe clusters of {clusters}")
+
+
+def match_keys(pages, nfam: int) -> list:
+    """Each key family's 16-bit keys at every position [P, S] (int64, on
+    the pages' device), with the bytes a key covers and its probes."""
+    from brotlig_tpu_torch.ops import encode as TE
+    q = TE._quads(pages)
+    hq = TE._mul32(q, TE.HASH_MUL)
+    b = pages.long()
+    tri = b | (TE._shift_left(b, 1) << 8) | (TE._shift_left(b, 2) << 16)
+    return [(hq >> 16, 4, TE.NUM_CANDIDATES),
+            ((hq ^ TE._mul32(TE._shift_left(q, 4), TE.HASH_MUL_8)) >> 16, 8,
+             TE.NUM_CANDIDATES_8),
+            (TE._mul32(tri, TE.HASH_MUL_8) >> 16, 3, 2)][:nfam]
 
 
 def match_work(pages, in_sizes, nfam: int) -> tuple:
@@ -1627,20 +1667,11 @@ def match_work(pages, in_sizes, nfam: int) -> tuple:
     positions with its key), as the plain version's stable sort ranks them
     (computed on the card)."""
     import torch
-    from brotlig_tpu_torch.ops import encode as TE
     P, S = pages.shape
     limit = in_sizes.long()[:, None]
     iota = torch.arange(S, device=pages.device)[None, :].expand(P, S)
-    q = TE._quads(pages)
-    hq = TE._mul32(q, TE.HASH_MUL)
-    b = pages.long()
-    tri = b | (TE._shift_left(b, 1) << 8) | (TE._shift_left(b, 2) << 16)
-    fams = [(hq >> 16, 4, TE.NUM_CANDIDATES),
-            ((hq ^ TE._mul32(TE._shift_left(q, 4), TE.HASH_MUL_8)) >> 16, 8,
-             TE.NUM_CANDIDATES_8),
-            (TE._mul32(tri, TE.HASH_MUL_8) >> 16, 3, 2)][:nfam]
     probes = keyed = 0
-    for key, nbytes, nprobe in fams:
+    for key, nbytes, nprobe in match_keys(pages, nfam):
         inside = iota + nbytes <= limit
         ks, _ = torch.sort(torch.where(inside, key, -1 - iota), dim=1,
                            stable=True)
@@ -1654,11 +1685,34 @@ def match_work(pages, in_sizes, nfam: int) -> tuple:
     return probes, OPS_PER_PROBE * probes + OPS_PER_KEY * keyed
 
 
+def match_design_bytes(P: int, S: int, nfam: int, nc: int, parts: int,
+                       cands: bool, max_cmds: int) -> int:
+    """The device-memory bytes a call of the kernels moves at most,
+    reckoned from the shapes, each array read or written once: sort_probe
+    reads the page into each of its cluster's nc CTAs, clears and stores
+    the families' words (4 B a position, families 0 and 1) and, for the
+    candidates, stores the near rows' parts (32 B a position) with their
+    presence bits; finish reads the page and the words (each of a page's
+    `parts` blocks) and the near rows, and writes the commands or the
+    candidate rows. Past 64 KiB pages the sort's slots, their keys, the
+    lengths and the node lists go through device scratch too."""
+    pos = P * S
+    nbytes = nc * nfam * pos + 2 * 2 * 4 * pos        # sort_probe
+    nbytes += parts * (pos + 2 * 4 * pos)             # finish
+    if cands:
+        nbytes += 2 * 32 * pos + 2 * 3 * pos // 8 + 2 * 4 * pos * 8
+    else:
+        nbytes += 3 * 4 * P * max_cmds + 4 * P
+    if S > 65536:   # slots, keys (written and read), lengths, nodes
+        nbytes += 3 * 2 * 4 * nfam * pos + 2 * 4 * pos
+    return nbytes
+
+
 def match_launches(pages, in_sizes, kind: str, param: int) -> tuple:
-    """The matcher's raw launches on a batch, as three functions: the sort
-    (hist and scatter, twice), probe and finish; kind "fast" or "exact"
-    (the cover; param = max_cmds) or "candidates" (param = cap), with
-    operands and scratch allocated once."""
+    """The matcher's raw launches on a batch, as two functions: sort_probe
+    and finish; kind "fast" or "exact" (the cover; param = max_cmds) or
+    "candidates" (param = cap), with operands and scratch allocated
+    once."""
     import torch
     from brotlig_tpu_torch import _kernels
     from brotlig_tpu_torch.ops import match_kernel as MK
@@ -1673,55 +1727,42 @@ def match_launches(pages, in_sizes, kind: str, param: int) -> tuple:
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.int32, device=dev)
-    hist = empty(P, nfam, 256, lib.blg_match_tiles(S))
-    pairs1, pairs2 = empty(P, nfam, 2 * S), empty(P, nfam, 2 * S)
-    rank, lens, dists = empty(P, nfam, S), empty(P, S), empty(P, S)
+    scratch = empty(lib.blg_match_scratch_ints(P, S, nfam))
     if cands:
-        out = [empty(P, S, 8), empty(P, S, 8)]
-        fin = [1, param, lens, dists, *[None] * 6, out[0]]
+        fin = [1, param, words, scratch, None, None, None, None,
+               empty(P, S, 8), empty(P, S, 8)]
     else:
-        out = [None, None]
-        fin = [param, 0, lens, dists, empty(P, S),
-               empty(P, lib.blg_match_nodes_ints(S)),
-               *[empty(P, param) for _ in range(3)], empty(P), None]
+        fin = [param, 0, words, scratch,
+               *[empty(P, param) for _ in range(3)], empty(P), None, None]
     common = [pages, sizes, P, S, nfam]
-    passes = [raw_launch(fn, [*common, pas, *args], dev)
-              for pas, src, dst in ((0, pairs1, pairs1), (1, pairs1, pairs2))
-              for fn, args in ((lib.blg_match_hist, [src, hist]),
-                               (lib.blg_match_scatter,
-                                [hist, src, dst, rank]))]
-
-    def sort():
-        for run in passes:
-            run()
-    return (sort,
-            raw_launch(lib.blg_match_probe,
-                       [*common, words, param if cands else 0, pairs2,
-                        rank, lens, dists, *out], dev),
-            raw_launch(lib.blg_match_finish, [sizes, P, S, *fin], dev))
+    return (raw_launch(lib.blg_match_sort_probe,
+                       [*common, words, scratch], dev),
+            raw_launch(lib.blg_match_finish, [*common, *fin], dev))
 
 
 def match_phase(batches: dict, gpu) -> dict:
     """The matcher's kernels held to their plain versions on the card
     (tolerance 0: commands and counts, or candidates) on each batch of
-    (pages, in_sizes, kind), the six raw launches timed by CUDA events
-    (the sort's four alone, with probe, with finish: the differences split
-    the time) beside the plain version's one run and the bound. Returns
-    the measures by batch."""
+    (pages, in_sizes, kind), the two raw launches timed by CUDA events
+    (sort_probe alone, then with finish: the difference is finish's)
+    beside the first design's six, the plain version's one run, the bound,
+    the bytes the design moves and, beside sort_probe's time as the sort
+    phase's yardstick, one torch.sort(keys, dim=1, stable=True) of the
+    batch's [P F, S] int32 keys, which the port never calls (no library
+    call computes the whole matcher: library_ms is null). Returns the
+    measures by batch."""
     import torch
     from brotlig_tpu_torch import _kernels
     from brotlig_tpu_torch.ops import encode as TE
     from brotlig_tpu_torch.ops import match_kernel as MK
     from brotlig_tpu_torch.ops import parse_dp
-    smem = [_kernels.library().blg_match_smem(k, PAGE) for k in range(5)]
-    print(f"[smoke] match kernels build: {match_kernel_report()}; dynamic "
-          f"shared memory at 64 KiB pages: hist {smem[0]}, scatter "
-          f"{smem[1]}, probe {smem[2]}, finish {smem[3]} (cover) / "
-          f"{smem[4]} (candidates) B a block [{gpu}]", flush=True)
+    print(f"[smoke] match kernels build: {match_kernel_report()} [{gpu}]",
+          flush=True)
     res = {}
     for name, (pages, in_sizes, kind) in batches.items():
         P, S = pages.shape
         cands = kind == "candidates"
+        nfam = MK.FAMILIES_CANDIDATES if cands else MK.FAMILIES_COVER
         param = parse_dp.WINDOW if cands else S // 4 + 16
         if cands:
             got = MK.find_candidates_cuda(pages, in_sizes, param)
@@ -1743,25 +1784,42 @@ def match_phase(batches: dict, gpu) -> dict:
         if err != 0:
             raise AssertionError(f"match kernels disagree with plain on the "
                                  f"{name} batch: {err}")
-        sort, probe, finish = match_launches(pages, in_sizes, kind, param)
-        t_sort = time_ms(sort, REPS)
-        t_probe = time_ms(lambda: (sort(), probe()), REPS)
-        ms = time_ms(lambda: (sort(), probe(), finish()), REPS)
-        probes, ops = match_work(pages, in_sizes,
-                                 MK.FAMILIES_CANDIDATES if cands
-                                 else MK.FAMILIES_COVER)
+        sort_probe, finish = match_launches(pages, in_sizes, kind, param)
+        t_sort = time_ms(sort_probe, REPS)
+        ms = time_ms(lambda: (sort_probe(), finish()), REPS)
+        keys = torch.stack([k for k, _, _ in match_keys(pages, nfam)],
+                           dim=1).to(torch.int32).reshape(P * nfam, S)
+        sort_ms = time_ms(
+            lambda: torch.sort(keys, dim=1, stable=True), REPS)
+        del keys
+        probes, ops = match_work(pages, in_sizes, nfam)
+        lib = _kernels.library()
+        nc = lib.blg_match_cluster_size(P, S, nfam)
+        moved = match_design_bytes(P, S, nfam, nc,
+                                   lib.blg_match_finish_parts(P, S, cands),
+                                   cands, 1 if cands else param)
         res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     **bound(nbytes, ops)}
+                     **bound(nbytes, ops), "library_ms": None}
         extra = ("" if cands else
                  f", {int(got[3].sum())} commands")
+        before = MATCH_FIRST.get(name)
+        was = (f"; the first design's six launches {sum(before):.4f} ms "
+               f"(sort {before[0]}, probe {before[1]}, finish {before[2]})"
+               if before else "")
         print(f"[smoke] match kernels == plain (tolerance 0) on the {name} "
-              f"batch ({P} x {S // 1024} KiB pages, {kind}{extra}); kernels "
-              f"{ms:.4f} ms (mean of {REPS} runs of the six raw launches: "
-              f"sort {t_sort:.4f}, probe {t_probe - t_sort:.4f}, finish "
-              f"{ms - t_probe:.4f}), plain {plain_ms:.1f} ms (one run on the "
-              f"card), bound {res[name]['bound_ms']:.5f} ms by "
+              f"batch ({P} x {S // 1024} KiB pages, {kind}{extra}, clusters "
+              f"of {nc} CTAs); kernels "
+              f"{ms:.4f} ms (mean of {REPS} runs of the two raw launches: "
+              f"sort_probe {t_sort:.4f}, finish {ms - t_sort:.4f}){was}; "
+              f"the sort phase's yardstick, torch.sort of the "
+              f"[{P * nfam}, {S}] int32 keys, {sort_ms:.4f} ms beside "
+              f"sort_probe's {t_sort:.4f}; plain "
+              f"{plain_ms:.1f} ms (one run on the card); bound "
+              f"{res[name]['bound_ms'] * 1e3:.3f} us by "
               f"{res[name]['bound_by']} ({nbytes} B, {probes} probes, {ops} "
-              f"operations) [{gpu}]", flush=True)
+              f"operations); the design moves at most {moved} B a call "
+              f"[{gpu}]",
+              flush=True)
     return res
 
 # ---------------------------------------------------------------------------
@@ -1830,17 +1888,22 @@ def cost_launches(args) -> tuple:
     return tables, positions
 
 
-def cost_batch(data: bytes, page: int, npages: int, dev) -> tuple:
-    """build_cost_model's arguments on npages corpus pages of `page` bytes:
-    the exact-tier greedy commands and the candidates (W 512), from the
-    matcher's kernels."""
+def corpus_pages(data: bytes, page: int, npages: int, dev) -> tuple:
+    """(pages uint8 [npages, page], in_sizes int64) of the corpus's first
+    npages pages of `page` bytes, on dev."""
     import numpy as np
     import torch
+    arr = np.frombuffer(data[:npages * page], np.uint8).reshape(npages, page)
+    return (torch.from_numpy(arr.copy()).to(dev),
+            torch.full((npages,), page, dtype=torch.int64, device=dev))
+
+
+def cost_batch(pages, sizes) -> tuple:
+    """build_cost_model's arguments on corpus pages: the exact-tier greedy
+    commands and the candidates (W 512), from the matcher's kernels."""
     from brotlig_tpu_torch.ops import parse_dp
     from brotlig_tpu_torch.ops.encode import find_candidates, find_commands
-    arr = np.frombuffer(data[:npages * page], np.uint8).reshape(npages, page)
-    pages = torch.from_numpy(arr.copy()).to(dev)
-    sizes = torch.full((npages,), page, dtype=torch.int64, device=dev)
+    page = pages.shape[1]
     return (pages, sizes, *find_commands(pages, sizes, page // 4 + 16),
             *find_candidates(pages, sizes, parse_dp.WINDOW))
 
@@ -2171,7 +2234,7 @@ def q11_phase(data: bytes, dev, gpu, tex_dp) -> dict:
         parse_dp.dp_parse_plain = plain
         parse_dp.build_cost_model_plain = plain_model
     launches = counts["dp_parse"]
-    # a run: the greedy cover and the DP's candidates, six launches each;
+    # a run: the greedy cover and the DP's candidates, two launches each;
     # the cost model, two launches an iteration
     want = {**dict.fromkeys(counts, 0), "dp_parse": iters * nruns,
             "pack": 2 * nruns, "match": 2 * MK.LAUNCHES_PER_CALL * nruns,
@@ -2680,14 +2743,18 @@ def main() -> int:
           f"{tex_packs['launches']}) [{gpu}]", flush=True)
     t1 = time.perf_counter()
     q1_in, q11_in = k_pack_in
+    sized = {k: corpus_pages(data16, 1024 * k, n, dev)
+             for k, n in ((32, 8), (128, 4))}
     k_match = match_phase({
         "q1": (*q1_in[:2], "fast"),
         "q11 greedy": (*q11_in[:2], "exact"),
         "q11 candidates": (*q11_in[:2], "candidates"),
         "texture q1": (*tex_packs["q1"][:2], "fast"),
         "texture q11 greedy": (*tex_packs["q11"][:2], "exact"),
-        "texture q11 candidates": (*tex_packs["q11"][:2], "candidates")},
-        gpu)
+        "texture q11 candidates": (*tex_packs["q11"][:2], "candidates"),
+        **{f"{k} KiB {tier}": (*sized[k], kind) for k in sized
+           for tier, kind in (("q1", "fast"), ("greedy", "exact"),
+                              ("candidates", "candidates"))}}, gpu)
     match_launches_main = (enc["matches"] + hyb["matches"] + q11["matches"]
                            + tex_packs["match launches"])
     print(f"[smoke] match phase {time.perf_counter() - t1:.1f} s; matcher "
@@ -2700,14 +2767,13 @@ def main() -> int:
     k_cost = cost_phase({
         **{f"q11 iteration {i + 1}": a for i, a in enumerate(cost_in)},
         "texture q11": tex_packs["cost in"],
-        "32 KiB": cost_batch(data16, 32768, 8, dev),
-        "128 KiB": cost_batch(data16, 131072, 4, dev)}, gpu)
+        **{f"{k} KiB": cost_batch(*sized[k]) for k in sized}}, gpu)
     cost_launches_main = q11["costs"] + tex_packs["cost launches"]
     print(f"[smoke] cost phase {time.perf_counter() - t1:.1f} s; cost "
           f"kernel launches on the encode main paths {cost_launches_main} "
           f"(q11 {q11['costs']}, texture {tex_packs['cost launches']}) "
           f"[{gpu}]", flush=True)
-    del tex_packs, q1_in, q11_in, cost_in
+    del tex_packs, q1_in, q11_in, cost_in, sized
     for got in [enc["launches"], hyb["launches"], q11["launches"]] \
             + tex_launches:
         for k in fused:

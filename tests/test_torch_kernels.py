@@ -14,8 +14,8 @@ from brotlig_tpu_torch import _kernels, decode, native, state
 from brotlig_tpu_torch.format.headers import parse_container
 from brotlig_tpu_torch.ops import decode as decode_mod
 from brotlig_tpu_torch.ops import (decode_kernel, encode_pack,
-                                   pack_kernel, phase_a_kernel, sweep_kernel,
-                                   tables_kernel)
+                                   match_kernel, pack_kernel, phase_a_kernel,
+                                   sweep_kernel, tables_kernel)
 from brotlig_tpu_torch.ops.decode import VALID_SWEEP_CW, staged_batches
 from brotlig_tpu_torch.state import Staged, tables_from_lengths
 from test_roundtrip import make_data
@@ -394,7 +394,8 @@ def test_find_commands_card_equals_cpu(cuda_dev, fast):
                         torch.from_numpy(sizes).to(cuda_dev), max_cmds, fast)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
-    assert _kernels.LAUNCHES["match"] == 6   # the kernels, not torch ops
+    # the kernels, not torch ops
+    assert _kernels.LAUNCHES["match"] == match_kernel.LAUNCHES_PER_CALL
 
 
 def test_find_candidates_card_equals_cpu(cuda_dev):
@@ -407,7 +408,7 @@ def test_find_candidates_card_equals_cpu(cuda_dev):
                           torch.from_numpy(sizes).to(cuda_dev), 512)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
-    assert _kernels.LAUNCHES["match"] == 6
+    assert _kernels.LAUNCHES["match"] == match_kernel.LAUNCHES_PER_CALL
 
 
 def test_encode_pages_device_card_equals_cpu(cuda_dev):

@@ -6,21 +6,31 @@ calls no JAX function and compiles no JAX executable.
 
 CPU part: `twin_commands` / `twin_candidates` are numpy renderings of what
 the kernels compute, step for step where it differs from the plain
-version: keys only where they cover bytes inside the page, a stable sort a
-family and each position's rank in it (no tail keys), probes that read the
-pairs just below the rank, a common prefix counted to min(cap, room), the
-chain extension walked down each residue class mod 192, and the greedy
-cover as walks over successors in 64 segments that the true path joins
-(no jump doubling). Cases: text,
-structured, random, all-zero and one-byte-run pages; a short last page with
-garbage past its size; a cover past max_cmds; 192-byte-exact chains; 32,
-64 and 128 KiB rows.
+version: keys only where they cover bytes inside the page; the sort as
+two stable 8-bit passes (low key byte, then high) over those positions,
+whose slots hold uint16 positions up to 64 KiB pages; the probes in
+sorted order (slot i's k-th probe is slot i - k while its key is the
+same), a common prefix counted to min(cap, room); a family's result per
+position as one word, len << 24 | distance, len the winner's full prefix
+to 192 bytes continued from the cap (0, never stored, where there is no
+probe), and for the candidates its first probes the same way into a row
+of 8 words a position, gated and clipped when the row is written; the
+fold of the two families' words
+with the distance-1 runs from a bitmap of run breaks, each position's
+length a uint16 up to 64 KiB pages; the chain extension walked down each
+residue class mod 192; and the greedy cover as walks over successors
+(found from the lengths as they are walked) in 64 segments that the
+true path joins (no jump doubling). Cases: text, structured, random,
+all-zero and one-byte-run pages; a short last page with garbage past its
+size; a cover past max_cmds; 192-byte-exact chains; 32, 64 and 128 KiB
+rows, and an all-zero 128 KiB row, whose one key holds 131,069 positions
+(past a 16-bit count).
 
 GPU part (`cuda` marker, skips without a card): the kernels against the
 plain version on the same cases, both tiers and the candidates, with the
 launches counted, and the wrappers refusing shapes they do not take.
 
-Cold time on one torch thread: ~15 s (this file alone, CPU).
+Cold time on one torch thread: ~19 s (this file alone, CPU).
 """
 import numpy as np
 import pytest
@@ -40,6 +50,8 @@ FAMILIES = ((4, TE.NUM_CANDIDATES, TE.NUM_NEAR),
             (8, TE.NUM_CANDIDATES_8, TE.NUM_NEAR_8), (3, 2, 2))
 PAD = CAPMAX + 8
 SEGS = 64           # the cover's segment walkers a page (csrc/match.cu)
+SMALL_PAGE = 1 << 16   # positions fit uint16 up to here
+LEN_SHIFT = 24         # a family's word: len << 24 | distance
 
 
 # ---------------------------------------------------------------------------
@@ -73,57 +85,98 @@ def _lcp(b, i, c, maxb: int, rem):
     return m
 
 
+def _sorted_slots(key):
+    """The sort's slots: the positions [0, n) after the stable pass by the
+    key's low byte and then the stable pass by its high byte."""
+    low = np.argsort(key & 255, kind="stable")
+    return low[np.argsort(key[low] >> 8, kind="stable")]
+
+
+def _family(b, S: int, limit: int, f: int, words: int):
+    """Family f's probes in sorted order: the word at each position (len
+    << 24 | distance, 0 where it has no key or no probe) and its first
+    probes [S, near] as prefix << 24 | distance (0 where the prefix is)."""
+    L, nprobe, nnear = FAMILIES[f]
+    n = max(0, limit - L + 1)
+    key = _keys(b, f, n)
+    slots = _sorted_slots(key)
+    if S <= SMALL_PAGE:
+        assert n == 0 or slots.max() < 1 << 16
+    skey = key[slots]
+    p = slots
+    rem = limit - p
+    mb = 8 if f == 2 else 4 * words
+    fl = np.zeros(n, np.int64)
+    fd = np.zeros(n, np.int64)
+    near = np.zeros((S, nnear), np.int64)
+    i = np.arange(n)
+    for k in range(1, nprobe + 1):
+        j = np.maximum(i - k, 0)
+        ok = (i >= k) & (skey[j] == skey)
+        c = slots[j]
+        ml = np.zeros(n, np.int64)
+        ml[ok] = _lcp(b, p[ok], c[ok], mb, rem[ok])
+        if k <= nnear:
+            near[p, k - 1] = np.where(ml > 0, ml << LEN_SHIFT | (p - c), 0)
+        better = ml > fl
+        fl = np.where(better, ml, fl)
+        fd = np.where(better, p - c, fd)
+    # the winner's full prefix, continued past the cap where it reached it
+    full = fl.copy()
+    on = (fd > 0) & (fl == mb)
+    full[on] = mb + _lcp(b, p[on] + mb, p[on] - fd[on] + mb, CAPMAX - mb,
+                         rem[on] - mb)
+    word = np.zeros(S, np.int64)
+    word[p] = full << LEN_SHIFT | fd
+    assert (full < 1 << 8).all() and (fd < 1 << LEN_SHIFT).all()
+    return word, near
+
+
+def _runs(row, limit: int):
+    """The distance-1 runs from the run breaks (p = 0, p at or past the
+    size, or byte p != byte p - 1): the distance to the next break, 0 at
+    a break."""
+    S = len(row)
+    pos = np.arange(S)
+    brk = np.ones(S, bool)
+    brk[1:limit] = row[1:limit] != row[:limit - 1]
+    nf = np.minimum.accumulate(np.where(brk, pos, S)[::-1])[::-1]
+    return np.where(brk, 0, nf - pos)
+
+
+def _fold(words, run, limit: int, maxb: int):
+    """Each position's length and distance before the chain: family 0's
+    word, family 1's where its capped prefix is strictly longer, then the
+    run where it is strictly longer."""
+    S = len(run)
+    pos = np.arange(S)
+    r0 = np.where(pos + 4 <= limit, words[0], 0)
+    r1 = np.where(pos + 8 <= limit, words[1], 0)
+    l0, l1 = r0 >> LEN_SHIFT, r1 >> LEN_SHIFT
+    second = np.minimum(l1, maxb) > np.minimum(l0, maxb)
+    lens = np.where(second, l1, l0)
+    dists = np.where(second, r1, r0) & ((1 << LEN_SHIFT) - 1)
+    longer = run > lens
+    return np.where(longer, run, lens), np.where(longer, 1, dists)
+
+
+NEAR_AT = (0, 4, 6)   # each family's first word in a row of near probes
+
+
 def _scan(row, limit: int, rank_words: int, nfam: int):
-    """One page: (lens, dists) after the winner and the runs, the near
-    slots [S, 7] (4-byte, 8-byte, 3-byte families) and their distances."""
+    """One page: (lens, dists) after the fold, and the rows of near probes
+    [S, 8] (4-byte family at 0-2, 8-byte at 4-5, 3-byte at 6-7)."""
     S = len(row)
     b = np.concatenate([row, np.zeros(PAD, np.uint8)])
-    pos = np.arange(S)
-    rem = np.maximum(limit - pos, 0)
-    best = np.zeros(S, np.int64)
-    bdist = np.zeros(S, np.int64)
-    near = np.zeros((S, 7), np.int64)
-    ndist = np.zeros((S, 7), np.int64)
-    slot = 0
-    for f in range(nfam):
-        L, nprobe, nnear = FAMILIES[f]
-        n = max(0, limit - L + 1)
-        key = _keys(b, f, n)
-        order = np.argsort(key, kind="stable")
-        skey = key[order]
-        rank = np.empty(n, np.int64)
-        rank[order] = np.arange(n)
-        p = pos[:n]
-        words = 2 if f == 2 else rank_words
-        fl = np.zeros(n, np.int64)
-        fd = np.zeros(n, np.int64)
-        for k in range(1, nprobe + 1):
-            rk = np.maximum(rank - k, 0)
-            ok = (rank >= k) & (skey[rk] == key)
-            c = order[rk]
-            ml = np.zeros(n, np.int64)
-            ml[ok] = _lcp(b, p[ok], c[ok], 4 * words, rem[:n][ok])
-            if k <= nnear:
-                near[:n, slot + k - 1] = ml
-                ndist[:n, slot + k - 1] = np.where(ml > 0, p - c, 0)
-            better = ml > fl
-            fl = np.where(better, ml, fl)
-            fd = np.where(better, p - c, fd)
-        slot += nnear
-        if f < 2:
-            better = fl > best[:n]
-            best[:n] = np.where(better, fl, best[:n])
-            bdist[:n] = np.where(better, fd, bdist[:n])
-    won = best > 0
-    lens = np.zeros(S, np.int64)
-    lens[won] = _lcp(b, pos[won], pos[won] - bdist[won], CAPMAX, rem[won])
-    eq = np.zeros(S, bool)
-    eq[1:limit] = row[1:limit] == row[:limit - 1]
-    nf = np.minimum.accumulate(np.where(eq, S, pos)[::-1])[::-1]
-    run = np.where(eq, np.minimum(nf - pos, rem), 0)
-    dists = np.where(run > lens, 1, bdist)
-    lens = np.maximum(run, lens)
-    return lens, dists, near, ndist
+    fams = [_family(b, S, limit, f, rank_words) for f in range(nfam)]
+    lens, dists = _fold([w for w, _ in fams[:2]], _runs(row, limit),
+                        limit, 4 * rank_words)
+    if S <= SMALL_PAGE:
+        assert lens.max(initial=0) < 1 << 16
+    near = np.zeros((S, 8), np.int64)
+    for at, (_, nr) in zip(NEAR_AT, fams):
+        near[:, at:at + nr.shape[1]] = nr
+    return lens, dists, near
 
 
 def _chain(lens, dists, limit: int):
@@ -143,6 +196,8 @@ def _chain(lens, dists, limit: int):
         term = np.where(cont, ta[v], lk)
         fin[p] = np.minimum(CAPMAX * cnt + term, np.maximum(limit - p, 0))
         la[v], da[v], ca[v], ta[v] = lk, dk, cnt, term
+    if S <= SMALL_PAGE:
+        assert fin.max(initial=0) < 1 << 16
     return fin
 
 
@@ -161,14 +216,16 @@ def _cover(fin, limit: int, late=None) -> list:
     def first_at(j):
         k = np.searchsorted(tpos, j)
         return int(tpos[k]) if k < len(tpos) else S
-    succ = {int(i): first_at(i + fin[i]) for i in tpos}
+
+    def succ(i):
+        return first_at(i + int(fin[i]))
     seg = -(-S // SEGS)
     walkers, exits = [], []
     for k in range(SEGS):
         x, nodes = first_at(k * seg), []
         while x < min(S, (k + 1) * seg):
             nodes.append(x)
-            x = succ[x]
+            x = succ(x)
         walkers.append(nodes)
         exits.append(x)
     t, out = first_at(0), []
@@ -176,7 +233,7 @@ def _cover(fin, limit: int, late=None) -> list:
         on, before = set(walkers[k]), len(out)
         while t < min(S, (k + 1) * seg) and t not in on:
             out.append(t)
-            t = succ[t]
+            t = succ(t)
         if late is not None:
             late.append(len(out) - before)
         if t < min(S, (k + 1) * seg):
@@ -194,7 +251,7 @@ def twin_commands(arr, sizes, max_cmds: int, fast: bool = False):
     words = TE.FAST_PROBE_WORDS if fast else TE.MAX_MATCH_WORDS
     for r in range(P):
         limit = min(max(int(sizes[r]), 0), S)
-        lens, dists, _, _ = _scan(arr[r], limit, words, 2)
+        lens, dists, _ = _scan(arr[r], limit, words, 2)
         fin = _chain(lens, dists, limit)
         end = 0
         nodes = _cover(fin, limit)[:max_cmds]
@@ -214,17 +271,15 @@ def twin_candidates(arr, sizes, cap: int):
     cd = np.zeros((P, S, 8), np.int32)
     for r in range(P):
         limit = min(max(int(sizes[r]), 0), S)
-        lens, dists, near, ndist = _scan(arr[r], limit, TE.MAX_MATCH_WORDS,
-                                         3)
-        rem = np.maximum(limit - np.arange(S), 0)[:, None]
-        slots = np.concatenate([_chain(lens, dists, limit)[:, None],
-                                np.minimum(near[:, :5], rem)], axis=1)
-        slots = np.minimum(slots, cap)
+        lens, dists, near = _scan(arr[r], limit, TE.MAX_MATCH_WORDS, 3)
+        words = near[:, [0, 1, 2, 4, 5, 6, 7]]   # slots 1-7
+        ml = words >> LEN_SHIFT
+        slots = np.minimum(np.concatenate([_chain(lens, dists, limit)[:, None],
+                                           ml[:, :5]], axis=1), cap)
         cl[r, :, :6] = np.where(slots >= TE.MIN_MATCH, slots, 0)
-        tri = np.where(near[:, 5:] >= 2, near[:, 5:], 0)
-        cl[r, :, 6:] = np.minimum(np.minimum(tri, rem), cap)
+        cl[r, :, 6:] = np.minimum(np.where(ml[:, 5:] >= 2, ml[:, 5:], 0), cap)
         cd[r, :, 0] = dists
-        cd[r, :, 1:] = ndist
+        cd[r, :, 1:] = words & ((1 << LEN_SHIFT) - 1)
     return cl, cd
 
 
@@ -269,6 +324,9 @@ def case(name: str):
     if name == "chain_192":
         arr = np.stack([_chain_row(2 * SMALL, 8), _chain_row(2 * SMALL, 9)])
         return arr, np.array([2 * SMALL, 2 * SMALL - 77], np.int32), None
+    if name == "zeros_128k":
+        return np.zeros((1, 1 << 17), np.uint8), np.full(1, 1 << 17,
+                                                         np.int32), None
     S = {"rows_32k": 1 << 15, "rows_64k": 1 << 16, "rows_128k": 1 << 17}[name]
     arr = np.frombuffer(make_data("text", S, seed=S), np.uint8)[None].copy()
     return arr, np.full(1, S, np.int32), None
@@ -276,7 +334,7 @@ def case(name: str):
 
 CASES = ("text", "structured", "random", "zeros", "one_byte_run",
          "short_last_page", "over_max_cmds", "chain_192", "rows_32k",
-         "rows_64k", "rows_128k")
+         "rows_64k", "rows_128k", "zeros_128k")
 
 
 def bound(S: int, fast: bool, max_cmds) -> int:
@@ -310,7 +368,7 @@ def test_twin_commands_equal_plain(name, fast):
         assert (got[3] == mc).all()
 
 
-@pytest.mark.parametrize("name", [c for c in CASES if c != "rows_128k"])
+@pytest.mark.parametrize("name", [c for c in CASES if "128k" not in c])
 def test_twin_candidates_equal_plain(name):
     arr, sizes, _ = case(name)
     cap = 100 if name == "chain_192" else 512
@@ -320,11 +378,29 @@ def test_twin_candidates_equal_plain(name):
         np.testing.assert_array_equal(g, w)
 
 
+@pytest.mark.parametrize("name", ["text", "rows_64k", "zeros_128k",
+                                  "structured", "random", "one_byte_run",
+                                  "rows_32k", "rows_128k"])
+def test_sort_passes_equal_stable_sort(name):
+    """The two 8-bit passes give a stable sort by the whole key: each
+    key's positions in ascending order. On the all-zero 128 KiB row one
+    key holds 131,069 positions, past what a uint16 count or slot holds,
+    so 128 KiB pages keep uint32 slots."""
+    arr, sizes, _ = case(name)
+    b = np.concatenate([arr[0], np.zeros(PAD, np.uint8)])
+    key = _keys(b, 0, int(sizes[0]) - 3)
+    slots = _sorted_slots(key)
+    np.testing.assert_array_equal(slots, np.argsort(key, kind="stable"))
+    hot = np.bincount(key.astype(np.int64)).max()
+    assert (hot == (1 << 17) - 3) == (name == "zeros_128k")
+    assert (hot > 0xFFFF) == (name == "zeros_128k")
+
+
 def test_chain_case_chains():
     """The chain case exercises what it is for: positions whose match
     extends past 192 bytes at one distance, and a break that ends one."""
     arr, sizes, _ = case("chain_192")
-    lens, dists, _, _ = _scan(arr[0], int(sizes[0]), TE.MAX_MATCH_WORDS, 2)
+    lens, dists, _ = _scan(arr[0], int(sizes[0]), TE.MAX_MATCH_WORDS, 2)
     fin = _chain(lens, dists, int(sizes[0]))
     chained = (lens == CAPMAX) & (fin > CAPMAX)
     assert chained.sum() > 1000 and (fin[chained] < arr.shape[1]).all()
@@ -334,7 +410,7 @@ def test_cover_joins_walkers_late():
     """The text rows exercise the cover's repair: segments where the true
     path enters off its walker's path and joins it only later."""
     arr, sizes, _ = case("rows_64k")
-    lens, dists, _, _ = _scan(arr[0], int(sizes[0]), TE.MAX_MATCH_WORDS, 2)
+    lens, dists, _ = _scan(arr[0], int(sizes[0]), TE.MAX_MATCH_WORDS, 2)
     late = []
     _cover(_chain(lens, dists, int(sizes[0])), int(sizes[0]), late)
     assert len(late) == SEGS and sum(x > 0 for x in late) >= SEGS // 4
