@@ -163,12 +163,14 @@ def library():
         lib.blg_match_finish.argtypes = [vp, vp, i32, i32, i32, i32, i32,
                                          i32, vp, vp, vp, vp, vp, vp, vp, vp]
         lib.blg_cost_scratch_ints.restype = ctypes.c_longlong
-        lib.blg_cost_scratch_ints.argtypes = [i32, i32]
-        lib.blg_cost_smem.restype = ctypes.c_longlong
-        lib.blg_cost_smem.argtypes = [i32, i32]
+        lib.blg_cost_scratch_ints.argtypes = [i32, i32, i32]
+        lib.blg_cost_plan.restype = ctypes.c_longlong
+        lib.blg_cost_plan.argtypes = [i32, i32, i32, i32]
+        lib.blg_cost_positions_smem.restype = ctypes.c_longlong
+        lib.blg_cost_positions_smem.argtypes = []
         lib.blg_cost_tables.restype = i32
         lib.blg_cost_tables.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32,
-                                        vp, vp, vp, vp]
+                                        vp, vp, vp, vp, vp]
         lib.blg_cost_unseen_check.restype = i32
         lib.blg_cost_unseen_check.argtypes = [i32, ctypes.c_float, vp, vp]
         lib.blg_cost_positions.restype = i32

@@ -19,8 +19,8 @@
 // page's final round emit nothing), so one launch covers a whole batch,
 // where the plain version runs once a command bucket.
 // Its phases 0 to 5 (the statistics and the code lengths) are page_stats
-// in page_tables.cuh, which the q11 cost model's table kernel
-// (cost_model.cu) shares.
+// in page_tables.cuh, whose helpers the q11 cost model's kernels
+// (cost_model.cu) also use.
 //
 // What bounds it on this card: a page is a chain of block-wide steps that
 // one block runs alone; the bytes it moves (a page, its commands, the
@@ -276,9 +276,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // ---- phases 0 to 5: the page's statistics and code lengths
   // (page_tables.cuh) ----
-  const PageStats st = page_stats<false>(
+  const PageStats st = page_stats(
       pg, ins, cpy, dist, n, insz, S, page_size, lay, scr, reg, region,
-      lq_shared, sm, stamp, nullptr);
+      lq_shared, sm, stamp);
   const long long tail = st.tail;
   const bool has_tail = st.has_tail;
   const int ntotal = st.ntotal, tail_code = st.tail_code;

@@ -1,13 +1,13 @@
-// The serializer's per-page statistics and prefix-code lengths, shared by
-// the serializer kernel (pack.cu) and the cost model's table kernel
-// (cost_model.cu): one thread block of kThreads threads a page computes,
-// bit for bit, what ops/encode_pack.py::page_histograms and _choose_table
-// give: the command starts and the tail, the exact distance ring before
-// each command, the (npostfix, ndirect) grid search, the ring mode, the
-// wire fields and the command / distance histograms, the literal cover and
-// the literal histogram, and the three tables' code lengths (page_stats,
-// the serializer's phases 0 to 5). pack.cu's head comment gives the
-// design; the helpers below are its building blocks.
+// The serializer's per-page statistics and prefix-code lengths (pack.cu):
+// one thread block of kThreads threads a page computes, bit for bit, what
+// ops/encode_pack.py::page_histograms and _choose_table give: the command
+// starts and the tail, the exact distance ring before each command, the
+// (npostfix, ndirect) grid search, the ring mode, the wire fields and the
+// command / distance histograms, the literal cover and the literal
+// histogram, and the three tables' code lengths (page_stats, the
+// serializer's phases 0 to 5). pack.cu's head comment gives the design;
+// the helpers below are its building blocks, and the q11 cost model's
+// kernels (cost_model.cu) use them too.
 #include <climits>
 #include <cstdint>
 
@@ -558,16 +558,13 @@ struct PageStats {
 // into stamp[1..5]): the command starts into the scratch, the ring codes,
 // the grid search, the ring mode, the wire fields (cmd4), the three
 // histograms and the literal queue, then the code lengths in sm.lens and
-// each table's mode, count, tsel and emission order. With kRing it also
-// writes the ring (r0, r1, r2, r3) before each command j < n and after the
-// last one (ring[n]), as _ring_before gives it over copies (cpy > 0 and
-// dist > 0). n is the page's command count, insz its size.
-template <bool kRing>
+// each table's mode, count, tsel and emission order. n is the page's
+// command count, insz its size.
 __device__ __forceinline__ PageStats page_stats(
     const uint8_t* pg, const int32_t* ins, const int32_t* cpy,
     const int32_t* dist, int n, int insz, int S, int page_size,
     const Layout& lay, int32_t* scr, unsigned char* reg, int region,
-    int lq_shared, Smem& sm, long long* stamp, int4* ring) {
+    int lq_shared, Smem& sm, long long* stamp) {
   const int tid = threadIdx.x;
   const int lane = lane_id();
   const int w = warp_id();
@@ -649,7 +646,6 @@ __device__ __forceinline__ PageStats page_stats(
       int d = 0;
       if (j < n) {
         const int r0 = ring0(j);
-        if (kRing) ring[j] = make_int4(r0, pvx(2 + t), pvx(1 + t), pvx(t));
         int rc = -1;
         d = dist[j];
         if (is_copy(j)) {
@@ -684,10 +680,6 @@ __device__ __forceinline__ PageStats page_stats(
     }
     pushed += tot;
   }
-  // the ring after the last command, which the bytes past them inherit
-  if (kRing && tid == 0)
-    ring[n] = make_int4(ring0(n), pvx(2 + pushed), pvx(1 + pushed),
-                        pvx(pushed));
   __syncthreads();
 
   // ---- the (npostfix, ndirect) grid search: the sorted keys, 16 grid

@@ -12,10 +12,9 @@ a previous parse. Here, per batch of pages:
   command symbol in both distance forms, and each candidate's distance
   (with the four ring distances probed as extra candidates). On a CUDA
   tensor it launches the kernels (csrc/cost_model.cu through
-  ops/cost_kernel.py: a block a page for the tables, sharing the
-  serializer kernel's statistics phases, then blocks of positions); on a
-  CPU tensor it runs `build_cost_model_plain`, the JAX module's jitted
-  function as torch ops;
+  ops/cost_kernel.py: a thread block cluster a page for the tables, then
+  tiles of positions); on a CPU tensor it runs `build_cost_model_plain`,
+  the JAX module's jitted function as torch ops;
 * `dp_parse`: dp[p], the least half-bits to encode the first p bytes, by
   blocks of B positions over a W-deep window of sources, R rounds of match
   relaxes per block; the literal chains of a block collapse into one

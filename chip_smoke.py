@@ -1876,16 +1876,31 @@ def cost_launches(args) -> tuple:
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.int32, device=dev)
-    scratch = empty(P, lib.blg_cost_scratch_ints(N, S))
+    scratch = empty(P, lib.blg_cost_scratch_ints(P, N, S))
     pages = pages.contiguous()
     tables = raw_launch(lib.blg_cost_tables,
                         [pages, *i32, P, S, N, empty(P, 576), empty(P, 576),
-                         scratch], dev)
+                         scratch, None], dev)
     positions = raw_launch(lib.blg_cost_positions,
                            [pages, i32[0], *base, P, S, N, scratch,
                             empty(P, S), *(empty(P, S, 12) for _ in range(3))],
                            dev)
     return tables, positions
+
+
+def cost_record(rec) -> str:
+    """The table kernel's clock record (int32 [P, REC_INTS], its clock
+    cycles by phase first): each phase's kcycles on the slowest page (by
+    the sum) and the mean over pages."""
+    from brotlig_tpu_torch.ops import cost_kernel as CK
+    cyc = rec[:, :len(CK.PHASES)].double().cpu()
+    slow = int(cyc.sum(1).argmax())
+    return (f"slowest page (row {slow}) {float(cyc[slow].sum()) / 1e3:.1f} "
+            f"kcycles, mean {float(cyc.sum(1).mean()) / 1e3:.1f}; by phase "
+            f"(slowest / mean): " + ", ".join(
+                f"{ph} {float(cyc[slow, k]) / 1e3:.1f} / "
+                f"{float(cyc[:, k].mean()) / 1e3:.1f}"
+                for k, ph in enumerate(CK.PHASES)))
 
 
 def corpus_pages(data: bytes, page: int, npages: int, dev) -> tuple:
@@ -1908,29 +1923,38 @@ def cost_batch(pages, sizes) -> tuple:
             *find_candidates(pages, sizes, parse_dp.WINDOW))
 
 
+def cost_position_bytes(P: int, S: int) -> int:
+    """The bytes the position kernel must move: each page byte and base
+    candidate read once, litq and the three [P, S, 12] outputs written
+    once."""
+    return P * S + 2 * 4 * P * S * 8 + 4 * P * S + 3 * 4 * P * S * 12
+
+
 def cost_phase(batches: dict, gpu) -> dict:
     """The cost model's kernels held to their plain version on the card
     (tolerance 0, all six outputs) on each batch of build_cost_model
     arguments, the two raw launches timed by CUDA events (the table kernel
     alone, then both: the difference is the position kernel's) beside the
     plain version's one run on the card and the bound (bytes, and the
-    operations of the slots and of the probes' compared bytes). Returns
-    the measures by batch."""
+    operations of the slots and of the probes' compared bytes), the
+    position kernel beside its own bytes bound, the wrapper's host time a
+    call, each batch's cluster and shared memory, and the table kernel's
+    clock record by phase. Returns the measures by batch."""
     import torch
     from brotlig_tpu_torch import _kernels
     from brotlig_tpu_torch.ops import cost_kernel as CK
     from brotlig_tpu_torch.ops import parse_dp
     lib = _kernels.library()
-    smem = {k: lib.blg_cost_smem(k // 4 + 16, k) for k in
-            (32768, 65536, 131072)}
-    print(f"[smoke] cost kernels build: {cost_kernel_report()}; the table "
-          f"kernel's dynamic shared memory by page size {smem} B a block "
-          f"[{gpu}]", flush=True)
+    print(f"[smoke] cost kernels build: {cost_kernel_report()}; the "
+          f"position kernel's dynamic shared memory "
+          f"{lib.blg_cost_positions_smem()} B a block [{gpu}]", flush=True)
     res = {}
     for name, args in batches.items():
         pages, ncmds = args[0], args[5]
         P, S = pages.shape
-        got = CK.build_cost_model_cuda(*args)
+        N = args[2].shape[1]
+        plan = [lib.blg_cost_plan(P, N, S, k) for k in range(3)]
+        *got, rec = CK.build_cost_model_cuda(*args, return_record=True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         want = parse_dp.build_cost_model_plain(*args)
@@ -1946,20 +1970,37 @@ def cost_phase(batches: dict, gpu) -> dict:
         tables, positions = cost_launches(args)
         t_tab = time_ms(tables, REPS)
         ms = time_ms(lambda: (tables(), positions()), REPS)
+        t_pos = ms - t_tab
         nbytes = cost_bytes(args)
         probed = int(got[3][..., CK.BASE_SLOTS:].long().sum())
         ops = (P * S * (CK.SLOTS * OPS_PER_SLOT + 4 * OPS_PER_PROBE_BYTE)
                + OPS_PER_PROBE_BYTE * probed)
         res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      **bound(nbytes, ops)}
+        pos_bound = cost_position_bytes(P, S) / HBM_BYTES_PER_S * 1e3
+        host = []
+        for _ in range(REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            CK.build_cost_model_cuda(*args)
+            host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
         print(f"[smoke] cost kernels == plain (tolerance 0, six outputs) on "
               f"the {name} batch ({P} x {S // 1024} KiB pages, "
-              f"{int(ncmds.sum())} commands); kernels {ms:.4f} ms (mean of "
-              f"{REPS} runs of the two raw launches: tables {t_tab:.4f}, "
-              f"positions {ms - t_tab:.4f}), plain {plain_ms:.1f} ms (one "
-              f"run on the card), bound {res[name]['bound_ms']:.5f} ms by "
-              f"{res[name]['bound_by']} ({nbytes} B, {ops} operations) "
-              f"[{gpu}]", flush=True)
+              f"{int(ncmds.sum())} commands; clusters of {plan[0]} CTAs a "
+              f"page, {plan[1]} B of dynamic shared memory a CTA, distance "
+              f"counts in {'shared memory' if plan[2] else 'the scratch'}); "
+              f"kernels {ms:.4f} ms (mean of {REPS} runs of the two raw "
+              f"launches: tables {t_tab:.4f}, positions {t_pos:.4f}, "
+              f"{pos_bound / t_pos:.1%} of the positions' own bytes bound "
+              f"{pos_bound:.5f} ms), plain {plain_ms:.1f} ms (one run on "
+              f"the card), bound {res[name]['bound_ms']:.5f} ms by "
+              f"{res[name]['bound_by']} ({nbytes} B, {ops} operations), "
+              f"{res[name]['bound_ms'] / ms:.1%} of it; the wrapper's host "
+              f"time a call {sorted(host)[REPS // 2]:.4f} ms (median of "
+              f"{REPS}, no synchronisation inside) [{gpu}]", flush=True)
+        print(f"[smoke] cost table kernel's clock on the {name} batch: "
+              f"{cost_record(rec)} [{gpu}]", flush=True)
     return res
 
 

@@ -4,31 +4,45 @@ tolerance 0. The plain version is pinned to the JAX package by
 tests/test_torch_parse_dp.py, so this file calls no JAX function and
 compiles no JAX executable.
 
-CPU part: `twin_model` is a numpy rendering of what the kernels compute,
-step for step where it differs from the plain version: half-bit cost
-tables (twice a used symbol's code length, the unseen cost otherwise) in
-place of float32 gathers, the ring before each command as the serializer
-kernel's list of pushed values, the covering command by a binary search
-per position, the ring probes as a byte loop counted to min(16, size -
-pos), and the lowest ring code by a first-match loop. The statistics and
-code lengths come from the serializer's plain functions, which the kernel
-shares with csrc/pack.cu (held to them by tests/test_torch_pack.py). Cases:
-text, structured, repetitive, random and all-zero pages (greedy commands
-at the bounds S // 2 + 2, and 200, which the text page fills; rows of
-2016 bytes);
-a page whose literal table is trivial (one symbol) with no command, one
-whose literal table is simple (three symbols), one its commands cover
-exactly with no tail, a short page with garbage past its size, distances
-of 1 (ring offsets r0 - k <= 0) and the initial ring at the page start
-(pos - r < 0); the DP's own commands in a second iteration; 32, 64 and
-128 KiB rows.
+CPU part: `twin_model` is a numpy rendering of what the kernels compute
+with c CTAs a page, step for step where it differs from the plain
+version: the (npostfix, ndirect) grid search from per-distance key counts
+in c slices, priced in c equal shares of the present distances joined by
+carries, keys past the slices in a sorted side list (`grid_costs`, whose
+16 costs are also held to the plain version's runs over the sorted
+keys); the literal histogram counted from each CTA's
+share of the cover, with no literal queue (`literal_hist_cover`); the
+covering command found once a tile of 2048 positions, then in the tile's
+slice of the starts (`_covering_tiles`); the ring probes four bytes a
+compare, the source as aligned words with a funnel shift
+(`_probe_words`); half-bit cost tables (twice a used symbol's code
+length, the unseen cost otherwise) in place of float32 gathers; the ring
+before each command as the kernel's list of pushed values; the lowest
+ring code by a first-match loop. The command and distance histograms and
+the code lengths come from the serializer's plain functions. The twin
+runs at c = 1 on every case and at c = 2 and 8 on the 2 KiB cases and
+the 16,384-command page. Cases: text, structured, repetitive, random and
+all-zero pages (greedy commands at the bounds S // 2 + 2, and 200, which
+the text page fills; rows of 2016 bytes); a page whose literal table is
+trivial (one symbol) with no command, one whose literal table is simple
+(three symbols), one its commands cover exactly with no tail, a short
+page with garbage past its size, distances of 1 (ring offsets r0 - k <=
+0) and the initial ring at the page start (pos - r < 0); the DP's own
+commands in a second iteration; 32, 64 and 128 KiB rows; and pages laid
+out by hand (`_synthetic`): a best grid point with npostfix 3, no grid
+key at all, distances past the page and just under 2^28, and a 64 KiB
+page of 16,384 commands.
 
 GPU part (`cuda` marker, skips without a card): the kernels against the
-plain version on the card on the same cases, with their launches counted;
-the kernels' unseen-symbol half-bits against parse_dp.unseen_bits for
-every total in [1, 2^18); the wrapper refusing shapes it does not take.
+plain version on the card on the same cases, with their launches
+counted, the table kernel's 16 grid costs (from its record) against the
+plain version's runs over the sorted keys, at 1, 8, 33, 64 and 80 pages
+(clusters of 8, 8, 4, 2 and 1 CTAs a page on 132 SMs), and at 80 pages
+of 128 KiB, whose distance counts live in the scratch; the kernels'
+unseen-symbol half-bits against parse_dp.unseen_bits for every total in
+[1, 2^18); the wrapper refusing shapes it does not take.
 
-Cold time on one torch thread: ~17 s, 12 s of it the tests (this file
+Cold time on one torch thread: ~34 s, ~24 s of it the tests (this file
 alone, CPU).
 """
 import functools
@@ -50,6 +64,7 @@ S = 2048
 W = 256                 # the candidates' cap
 MODEL = ("litq", "jointEq", "jointLq", "cand_len", "cand_dist", "dpackq")
 INIT_PV = (16, 15, 11)  # the initial ring's tail, oldest first
+FAR = 1 << 28           # grid-search distances at or past it are left out
 
 
 # ---------------------------------------------------------------------------
@@ -98,36 +113,68 @@ def _ring_table(ins, cpy, dist, n: int):
     return ring
 
 
-def _covering(starts, covered: int, n: int, S_: int):
-    """Each position's column: the last command starting at or before it
-    (a binary search a position), n at or past the covered bytes."""
-    pos = np.arange(S_)
-    if n == 0:
-        return np.zeros(S_, np.int64)
-    lo = np.zeros(S_, np.int64)
-    hi = np.full(S_, n - 1, np.int64)
-    while (lo < hi).any():
-        live = lo < hi
-        mid = (lo + hi + 1) >> 1
-        take = starts[np.minimum(mid, n - 1)] <= pos
-        lo = np.where(live & take, mid, lo)
-        hi = np.where(live & ~take, mid - 1, hi)
-    return np.where(pos < covered, lo, n)
+POS_TILE = 2048          # positions a block of the position kernel
 
 
-def _probe(row, size: int, r):
-    """The ring probe at every position: the common prefix of the bytes
-    at pos and pos - r, counted to min(16, size - pos), kept from 2 on."""
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _covering_tiles(starts, covered: int, n: int, S_: int):
+    """Each position's column as the position kernel finds it: a tile of
+    POS_TILE positions takes the starts of the commands that cover it (the
+    last start at or before its first position to the last before its
+    end) and each position searches them for the last start at or before
+    it; at or past the covered bytes, n."""
+    col = np.full(S_, n, np.int64)
+    for t0 in range(0, S_, POS_TILE):
+        if n == 0 or t0 >= covered:
+            continue
+        jlo = np.searchsorted(starts[:n], t0, "right") - 1
+        jhi = np.searchsorted(starts[:n], min(t0 + POS_TILE, covered) - 1,
+                              "right") - 1
+        pos = np.arange(t0, min(t0 + POS_TILE, S_))
+        pos = pos[pos < covered]
+        col[pos] = jlo + np.searchsorted(starts[jlo:jhi + 1], pos,
+                                         "right") - 1
+    return col
+
+
+def _words(row):
+    """The page as little-endian 32-bit words, zeros past its end."""
+    w = np.zeros(len(row) // 4 + 8, np.uint64)
+    w[:len(row) // 4] = np.frombuffer(row.tobytes(), "<u4")
+    return w
+
+
+def _word_at(w, byte):
+    """The four bytes from byte on: two aligned words and a funnel shift."""
+    lo, hi = w[byte >> 2], w[(byte >> 2) + 1]
+    return ((hi << np.uint64(32)) | lo) >> (8 * (byte & 3)).astype(
+        np.uint64) & np.uint64(0xffffffff)
+
+
+def _probe_words(row, size: int, r):
+    """The ring probe at every position, four bytes a compare: the common
+    prefix of the bytes at pos and pos - r, counted to min(16, size - pos),
+    kept from 2 on."""
     S_ = len(row)
+    w = _words(row)
     pos = np.arange(S_)
     room = np.minimum(16, min(size, S_) - pos)
-    alive = (r >= 1) & (pos - r >= 0)
+    alive = (r >= 1) & (pos - r >= 0) & (room > 0)
+    src = np.where(alive, pos - r, 0)
     m = np.zeros(S_, np.int64)
-    for j in range(16):
-        a = row[np.minimum(pos + j, S_ - 1)]
-        b = row[np.clip(pos - r + j, 0, S_ - 1)]
-        alive &= (j < room) & (a == b)
-        m += alive
+    go = alive.copy()
+    for v in range(4):
+        go &= 4 * v < room
+        x = _word_at(w, pos + 4 * v) ^ _word_at(w, src + 4 * v)
+        low = (x & (~x + np.uint64(1))).astype(np.float64)
+        first = np.where(x != 0, np.log2(np.maximum(low, 1)).astype(np.int64)
+                         >> 3, 4)
+        m = np.where(go, m + first, m)
+        go &= x == 0
+    m = np.where(alive, np.minimum(m, room), 0)
     ok = m >= 2
     return np.where(ok, m, 0), np.where(ok, r, 0)
 
@@ -146,18 +193,132 @@ def _ring_code(d, ring):
     return code
 
 
-def twin_model(arr, sizes, ins, cpy, dist, ncmds, base_len, base_dist):
-    """The six cost-model outputs as the kernels compute them (int64
-    numpy)."""
+def grid_keys(ins, cpy, dist, n: int):
+    """The grid search's keys: the copies' distances that are not exact
+    ring hits (codes 0-3), below 2^28."""
+    ring = _ring_table(ins, cpy, dist, n)[:n]
+    d = np.asarray(dist[:n], np.int64)
+    copy = (np.asarray(cpy[:n]) > 0) & (d > 0)
+    exact = _ring_code(d[:, None], ring)[:, 0]
+    keep = copy & ~((exact >= 0) & (exact <= 3)) & (d < FAR)
+    return d[keep]
+
+
+def _run_cost(cnt, log2k):
+    """One run's entropy term in 2^-16 bits (float64, round half even)."""
+    c = np.asarray(cnt, np.float64)
+    return np.rint((c * (log2k - np.log2(c)) + 6.0) * 65536.0).astype(np.int64)
+
+
+def grid_costs(keys, S_: int, c: int):
+    """The 16 grid points' costs as the table kernel prices them: the keys
+    counted by distance into c slices of up(S / c, 64) distances (keys past
+    them in a sorted side list); the present distances in distance order
+    split into c equal shares by rank (CTA r the ranks [M r / c, M (r + 1)
+    / c) of M), then the side list; in each share, a run starts where the
+    symbol is inside the alphabet and differs from the previous key's (the
+    first key's previous is the last present distance before the share);
+    each share gives its first and last run start, the cost of the runs it
+    closes and its extra bits, and the shares are joined in order, the
+    open run closed at the end. Returns int64 [16]."""
+    keys = np.asarray(keys, np.int64)
+    K = len(keys)
+    log2k = np.log2(max(K, 1))
+    DR = c * _up(-(-S_ // c), 64)
+    cnt = np.bincount(keys[keys < DR], minlength=DR)
+    side = np.sort(keys[keys >= DR])
+    present = np.nonzero(cnt)[0]
+    M = len(present)
+    parts = []      # (distances, counts) of each share, then the side list
+    for r in range(c):
+        d = present[M * r // c:M * (r + 1) // c]
+        parts.append((d, cnt[d]))
+    parts.append((side, np.ones(len(side), np.int64)))
+    out = np.zeros(16, np.int64)
+    for g in range(16):
+        np_, nd_ = g >> 2, (0, 3, 8, 15)[g & 3] << (g >> 2)
+        cost = nbs = 0
+        prev_l, prevd, base = -1, -1, 0
+        for d, k in parts:
+            if len(d) == 0:
+                continue
+            sym, nb = _encode_distance(d, np_, nd_)
+            first_prev = (_encode_distance(np.array([prevd]), np_, nd_)[0][0]
+                          if prevd > 0 else -1)
+            prev = np.concatenate([[first_prev], sym[:-1]])
+            pos = base + np.concatenate([[0], np.cumsum(k)[:-1]])
+            sp = pos[(sym < TP.A_DST) & (sym != prev)]
+            cost += int(_run_cost(np.diff(sp), log2k).sum())
+            nbs += int((k * nb).sum())
+            if len(sp):
+                if prev_l >= 0:
+                    cost += int(_run_cost(sp[0] - prev_l, log2k))
+                prev_l = sp[-1]
+            prevd, base = int(d[-1]), base + int(k.sum())
+        if prev_l >= 0:
+            cost += int(_run_cost(K - prev_l, log2k))
+        out[g] = cost + (nbs << 16)
+    return out
+
+
+def literal_hist_cover(row, size: int, ins, cpy, n: int, c: int):
+    """The literal histogram as the table kernel counts it: CTA r marks
+    its share of up(S / c, 32) positions that lie in an insert region (of
+    the commands from the last start at or before its first position to
+    the last before its end) or in the tail, inside the page's size, and
+    counts the marked bytes; the shares' counts are summed."""
+    S_ = len(row)
+    ln = (np.asarray(ins[:n], np.int64) + np.asarray(cpy[:n], np.int64))
+    starts = np.cumsum(ln) - ln
+    covered = int(ln.sum())
+    lim = min(size, S_)
+    pr = _up(-(-S_ // c), 32)
+    hist = np.zeros(256, np.int64)
+    for r in range(c):
+        P0, P1 = r * pr, min(r * pr + pr, S_)
+        if P1 <= P0:
+            continue
+        edge = np.zeros(P1 - P0 + 1, np.int64)
+        a, b = max(P0, covered), min(lim, P1)
+        if a < b:
+            edge[a - P0] += 1
+            edge[b - P0] -= 1
+        if n > 0 and P0 < covered:
+            jlo = np.searchsorted(starts, P0, "right") - 1
+            jhi = np.searchsorted(starts, P1 - 1, "right") - 1
+            a = np.maximum(starts[jlo:jhi + 1], P0)
+            b = np.minimum(np.minimum(
+                starts[jlo:jhi + 1] + np.asarray(ins[jlo:jhi + 1]), lim), P1)
+            live = a < b
+            np.add.at(edge, a[live] - P0, 1)
+            np.add.at(edge, b[live] - P0, -1)
+        mark = np.cumsum(edge[:-1]) > 0
+        hist += np.bincount(row[P0:P1][mark], minlength=256)
+    return hist
+
+
+def twin_model(arr, sizes, ins, cpy, dist, ncmds, base_len, base_dist,
+               c: int = 1):
+    """The six cost-model outputs as the kernels compute them with c CTAs a
+    page (int64 numpy)."""
     P, S_ = arr.shape
     t64 = [torch.from_numpy(np.asarray(x, np.int64))
            for x in (sizes, ins, cpy, dist, ncmds)]
-    (_, _, _, npostfix, ndist, _, hists) = TP.page_histograms(
+    (_, _, _, _, _, _, (hist_cmd, hist_dst, _)) = TP.page_histograms(
         torch.from_numpy(arr), *t64)
-    npostfix, ndist = npostfix.numpy(), ndist.numpy()
+    npostfix = np.zeros(P, np.int64)
+    ndist = np.zeros(P, np.int64)
+    hist_lit = np.zeros((P, 256), np.int64)
+    for p in range(P):
+        n = int(ncmds[p])
+        best = int(np.argmin(grid_costs(grid_keys(ins[p], cpy[p], dist[p], n),
+                                        S_, c)))
+        npostfix[p], ndist[p] = best >> 2, (0, 3, 8, 15)[best & 3]
+        hist_lit[p] = literal_hist_cover(arr[p], int(sizes[p]), ins[p],
+                                         cpy[p], n, c)
     tabs = []
-    for h, A, pad in zip(hists, (TP.A_CMD, TP.A_DST, TP.A_LIT),
-                         (2.0, 4.0, 2.0)):
+    for h, A, pad in zip((hist_cmd, hist_dst, torch.from_numpy(hist_lit)),
+                         (TP.A_CMD, TP.A_DST, TP.A_LIT), (2.0, 4.0, 2.0)):
         total = h.sum(1)
         lens = TP._choose_table(h, total, A)[0].numpy()
         unseen = torch.round(2 * TD.unseen_bits(total.clamp(min=1), pad))
@@ -181,8 +342,9 @@ def twin_model(arr, sizes, ins, cpy, dist, ncmds, base_len, base_dist):
         ln = (ins[p, :n] + cpy[p, :n]).astype(np.int64)
         starts = np.cumsum(ln) - ln
         ring = _ring_table(ins[p], cpy[p], dist[p], n)[
-            _covering(starts, int(ln.sum()), n, S_)]
-        probes = [_probe(arr[p], int(sizes[p]), ring[:, k]) for k in range(4)]
+            _covering_tiles(starts, int(ln.sum()), n, S_)]
+        probes = [_probe_words(arr[p], int(sizes[p]), ring[:, k])
+                  for k in range(4)]
         cand_len[p] = np.concatenate(
             [base_len[p], np.stack([x[0] for x in probes], 1)], 1)
         cand_dist[p] = np.concatenate(
@@ -267,12 +429,61 @@ def _dp_second():
     return (arr, sizes, *out, cl, cd)
 
 
+def _synthetic(name: str):
+    """A page of text with commands laid out by hand and random base
+    candidates (the cost model does not check that a command's copy
+    matches): 'npostfix', 2-byte inserts and 3-byte copies whose distances
+    d have d - 1 a multiple of 8 nineteen times in twenty, so the best grid
+    point has npostfix 3 and the other postfixes' symbols interleave in
+    distance order; 'no_keys', copies at distances 4 and 11 in turn, every
+    one an exact ring hit (no grid-search key); 'far', distances past the page
+    (up to just under 2^28, and some at or past it, which the search
+    leaves out) among near ones; 'many', a 64 KiB page of 16,384 commands
+    (1-byte inserts, 3-byte copies) whose distances are near ones, ring
+    hits and far ones."""
+    rng = np.random.default_rng(11)
+    S_ = 65536 if name == "many" else S
+    arr, sizes = _rows([("text", S_)], S_, seed=13)
+    if name == "npostfix":
+        n, ins_v, cpy_v = S_ // 5, 2, 3
+        d = 1 + 8 * rng.integers(2, 250, n)
+        odd = rng.random(n) < 0.05
+        d[odd] = rng.integers(5, 1800, odd.sum())
+    elif name == "no_keys":
+        n, ins_v, cpy_v = S_ // 4, 1, 3
+        d = np.where(np.arange(n) % 2, 11, 4)
+    elif name == "far":
+        n, ins_v, cpy_v = S_ // 7, 3, 4
+        d = rng.integers(1, 2000, n)
+        kind = rng.integers(0, 4, n)
+        d = np.where(kind == 1, rng.integers(S_, S_ + 6000, n), d)
+        d = np.where(kind == 2, FAR - rng.integers(1, 40, n), d)
+        d = np.where((kind == 3) & (rng.random(n) < 0.3),
+                     FAR + rng.integers(0, 9, n), d)
+    else:
+        n, ins_v, cpy_v = S_ // 4, 1, 3
+        d = rng.integers(1, 60000, n)
+        reuse = rng.random(n) < 0.3
+        d[1:][reuse[1:]] = d[:-1][reuse[1:]]
+        d = np.where(rng.random(n) < 0.05, rng.integers(S_, 1 << 20, n), d)
+    N = S_ // 4 + 16
+    ins, cpy, dist = (np.zeros((1, N), np.int32) for _ in range(3))
+    ins[0, :n], cpy[0, :n], dist[0, :n] = ins_v, cpy_v, d
+    base_len = np.where(rng.random((1, S_, 8)) < 0.5, 0,
+                        rng.integers(3, 200, (1, S_, 8))).astype(np.int32)
+    base_dist = np.where(base_len > 0, rng.integers(1, 60000, (1, S_, 8)),
+                         0).astype(np.int32)
+    return (arr, sizes, ins, cpy, dist, np.array([n], np.int32), base_len,
+            base_dist)
+
+
+SYNTHETIC = ("npostfix", "no_keys", "far", "many")
 KINDS = [("text", S), ("structured", S - 97), ("repetitive", S),
          ("random", 1000), ("zeros", S)]
 BIG = {"32k": ("text", 32768, 32768), "64k": ("structured", 65536, 65536),
        "128k": ("text", 131072, 131072 - 5000)}
 CASES = ("kinds", "bound_200", "s2016", "edges", "dp_second", "32k", "64k",
-         "128k")
+         "128k") + SYNTHETIC
 
 
 @functools.lru_cache(maxsize=None)
@@ -294,6 +505,8 @@ def case(name: str):
         return _edges()
     if name == "dp_second":
         return _dp_second()
+    if name in SYNTHETIC:
+        return _synthetic(name)
     kind, S_, n = BIG[name]
     arr, sizes = _rows([(kind, n)], S_, seed=7)
     return (arr, sizes) + _greedy(arr, sizes)
@@ -304,16 +517,114 @@ def plain(args, dev="cpu"):
         *[torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in args])
 
 
+@functools.lru_cache(maxsize=None)
+def plain_of(name: str):
+    """The plain version's outputs on a case, on the CPU (numpy)."""
+    return tuple(t.numpy() for t in plain(case(name)))
+
+
+@functools.lru_cache(maxsize=None)
+def plain_stats(name: str):
+    """page_histograms' npostfix, ndist and literal histogram on a case
+    (numpy)."""
+    arr, sizes, ins, cpy, dist, ncmds, *_ = case(name)
+    t64 = [torch.from_numpy(np.asarray(x, np.int64))
+           for x in (sizes, ins, cpy, dist, ncmds)]
+    _, _, _, npf, ndist, _, hists = TP.page_histograms(torch.from_numpy(arr),
+                                                       *t64)
+    return npf.numpy(), ndist.numpy(), hists[2].numpy()
+
+
+# the cases of 2 KiB pages, whose twin runs in well under a second
+SMALL = ("kinds", "bound_200", "s2016", "edges", "dp_second", "npostfix",
+         "no_keys", "far")
+
+
 # ---------------------------------------------------------------------------
 # CPU: the twin against the plain version
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("name", CASES)
 def test_twin_equals_plain(name):
-    args = case(name)
-    got = twin_model(*args)
-    for nm, g, w in zip(MODEL, got, plain(args)):
-        np.testing.assert_array_equal(g, w.numpy(), err_msg=nm)
+    got = twin_model(*case(name))
+    for nm, g, w in zip(MODEL, got, plain_of(name)):
+        np.testing.assert_array_equal(g, w, err_msg=nm)
+
+
+@pytest.mark.parametrize("c", (2, 8))
+def test_twin_slices_equal_plain(c):
+    """The twin with 2 and 8 CTAs a page (slices of distances and of page
+    positions) on the 2 KiB cases and the 16,384-command page."""
+    for name in SMALL + ("many",):
+        got = twin_model(*case(name), c=c)
+        for nm, g, w in zip(MODEL, got, plain_of(name)):
+            np.testing.assert_array_equal(g, w, err_msg=f"{name} {nm}")
+
+
+def _sorted_run_costs(keys):
+    """The plain version's 16 grid costs: _dist_cost over the sorted keys
+    (ops/encode_pack.py::_build_fields)."""
+    d = torch.from_numpy(np.sort(np.asarray(keys, np.int64)))[None, None, :]
+    gnp = torch.arange(4).repeat_interleave(4)[None, :, None]
+    gnd = torch.tensor([0, 3, 8, 15]).repeat(4)[None, :, None]
+    sym, nb, _ = TP._encode_distance(d, gnp, gnd << gnp)
+    mask = torch.ones(1, 16, d.shape[2], dtype=torch.bool)
+    return TP._dist_cost(sym, nb, mask, presorted=True)[0].numpy()
+
+
+@pytest.mark.parametrize("c", (1, 2, 8))
+def test_grid_costs_equal_sorted_runs(c):
+    """All 16 grid points' costs from per-distance counts, priced in c
+    shares joined by carries (keys past the slices in the side list), equal the
+    plain version's runs over the sorted keys, on every page of every
+    case; the first minimum is the plain version's (npostfix, ndist)."""
+    for name in CASES:
+        arr, sizes, ins, cpy, dist, ncmds, *_ = case(name)
+        npf, ndist, _ = plain_stats(name)
+        for p in range(arr.shape[0]):
+            keys = grid_keys(ins[p], cpy[p], dist[p], int(ncmds[p]))
+            got = grid_costs(keys, arr.shape[1], c)
+            np.testing.assert_array_equal(got, _sorted_run_costs(keys),
+                                          err_msg=f"{name} page {p}")
+            best = int(np.argmin(got))
+            assert (best >> 2, (0, 3, 8, 15)[best & 3]) == (
+                int(npf[p]), int(ndist[p])), (name, p)
+
+
+@pytest.mark.parametrize("c", (1, 2, 8))
+def test_literal_cover_equals_plain(c):
+    """The literal histogram counted from each CTA's share of the cover
+    (no literal queue) equals page_histograms' on every page."""
+    for name in CASES:
+        arr, sizes, ins, cpy, dist, ncmds, *_ = case(name)
+        want = plain_stats(name)[2]
+        for p in range(arr.shape[0]):
+            got = literal_hist_cover(arr[p], int(sizes[p]), ins[p], cpy[p],
+                                     int(ncmds[p]), c)
+            np.testing.assert_array_equal(got, want[p],
+                                          err_msg=f"{name} page {p}")
+
+
+def test_synthetic_cases_take_their_branches():
+    """The hand-laid pages reach what they are for: npostfix > 0 with keys
+    of other postfixes between them in distance order; no key at all;
+    keys past the page, just under 2^28 and at or past it; more than
+    16,000 commands, so that every CTA of a cluster of 8 has a share."""
+    arr, sizes, ins, cpy, dist, ncmds, *_ = case("npostfix")
+    keys = np.sort(grid_keys(ins[0], cpy[0], dist[0], int(ncmds[0])))
+    best = int(np.argmin(grid_costs(keys, S, 1)))
+    npf, nd = best >> 2, (0, 3, 8, 15)[best & 3] << (best >> 2)
+    post = (keys[keys > nd] - nd - 1) & ((1 << npf) - 1)
+    assert npf > 0 and (np.diff(post) != 0).sum() > 10
+    arr, sizes, ins, cpy, dist, ncmds, *_ = case("no_keys")
+    assert int(ncmds[0]) > 0 and len(grid_keys(ins[0], cpy[0], dist[0],
+                                               int(ncmds[0]))) == 0
+    arr, sizes, ins, cpy, dist, ncmds, *_ = case("far")
+    keys = grid_keys(ins[0], cpy[0], dist[0], int(ncmds[0]))
+    assert (keys >= S).sum() > 10 and (keys >= FAR - 40).sum() > 10
+    assert (dist[0, :int(ncmds[0])] >= FAR).sum() > 0
+    arr, sizes, ins, cpy, dist, ncmds, *_ = case("many")
+    assert int(ncmds[0]) > 16000 and arr.shape[1] == 65536
 
 
 def test_edge_cases_take_their_branches():
@@ -391,6 +702,86 @@ def test_cost_kernels_equal_plain(cuda_dev, name):  # noqa: F811
     for nm, g, w in zip(MODEL, got, plain(args, cuda_dev)):
         assert g.dtype == torch.int32 and g.is_cuda
         assert torch.equal(g, w), nm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", (1, 8, 33, 64, 80))
+def test_cost_kernels_cluster_sizes(cuda_dev, P):  # noqa: F811
+    """P pages of the 2 KiB cases (the kinds and edge pages in turn), whose
+    clusters take 8, 4, 2 or 1 CTAs a page (the most whose CTAs fit the
+    card's SMs), against the plain version; each page's clock record is
+    filled."""
+    parts = [case("kinds"), case("edges")]
+    N = max(x[2].shape[1] for x in parts)
+    rows = []
+    for i in range(P):
+        a = parts[i % 2]
+        j = (i // 2) % a[0].shape[0]
+        rows.append([np.pad(x[j], (0, N - x.shape[1])) if k in (2, 3, 4)
+                     else x[j] for k, x in enumerate(a)])
+    args = [np.stack([r[k] for r in rows]) for k in range(8)]
+    ops = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda_dev)
+           for x in args]
+    sms = torch.cuda.get_device_properties(cuda_dev).multi_processor_count
+    want_c = max([1] + [c for c in (2, 4, 8) if P * c <= sms])
+    lib = _kernels.library()
+    assert lib.blg_cost_plan(P, N, S, 0) == want_c
+    *got, rec = CK.build_cost_model_cuda(*ops, return_record=True)
+    torch.cuda.synchronize()
+    for nm, g, w in zip(MODEL, got, plain(args, cuda_dev)):
+        assert torch.equal(g, w), (nm, P)
+    assert rec.shape == (P, CK.REC_INTS)
+    assert (rec[:, :len(CK.PHASES)] >= 0).all()
+
+
+@pytest.mark.cuda
+def test_cost_kernels_counts_in_scratch(cuda_dev):  # noqa: F811
+    """80 pages of 128 KiB: clusters of one CTA, whose distance counts
+    (64 K words) do not fit its shared memory and live in the scratch;
+    against the plain version on the card. The pages repeat one laid out
+    by hand (text, 32,768 commands of 1-byte inserts and 3-byte copies at
+    near, repeated and far distances) with random base candidates."""
+    rng = np.random.default_rng(17)
+    S_, n, P = 131072, 32768, 80
+    arr, sizes = _rows([("text", S_)], S_, seed=19)
+    N = S_ // 4 + 16
+    d = rng.integers(1, 120000, n)
+    reuse = rng.random(n - 1) < 0.3
+    d[1:][reuse] = d[:-1][reuse]
+    d = np.where(rng.random(n) < 0.05, rng.integers(S_, 1 << 20, n), d)
+    one = [np.zeros((1, N), np.int32) for _ in range(3)]
+    one[0][0, :n], one[1][0, :n], one[2][0, :n] = 1, 3, d
+    base_len = np.where(rng.random((1, S_, 8)) < 0.5, 0,
+                        rng.integers(3, 200, (1, S_, 8))).astype(np.int32)
+    base_dist = np.where(base_len > 0, rng.integers(1, 120000, (1, S_, 8)),
+                         0).astype(np.int32)
+    rows = [arr, sizes, *one, np.array([n], np.int32), base_len, base_dist]
+    ops = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda_dev).expand(
+        (P,) + x.shape[1:]).contiguous() for x in rows]
+    lib = _kernels.library()
+    assert lib.blg_cost_plan(P, N, S_, 0) == 1
+    assert lib.blg_cost_plan(P, N, S_, 2) == 0
+    got = CK.build_cost_model_cuda(*ops)
+    torch.cuda.synchronize()
+    for nm, g, w in zip(MODEL, got, TD.build_cost_model_plain(*ops)):
+        assert torch.equal(g, w), nm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CASES)
+def test_cost_kernel_grid_costs(cuda_dev, name):  # noqa: F811
+    """All 16 grid points' costs the table kernel priced (its record)
+    equal the plain version's runs over the sorted keys, on every page."""
+    args = case(name)
+    ops = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda_dev)
+           for x in args]
+    rec = CK.build_cost_model_cuda(*ops, return_record=True)[-1]
+    got = CK.grid_costs(rec).cpu().numpy()
+    arr, sizes, ins, cpy, dist, ncmds, *_ = args
+    for p in range(arr.shape[0]):
+        keys = grid_keys(ins[p], cpy[p], dist[p], int(ncmds[p]))
+        np.testing.assert_array_equal(got[p], _sorted_run_costs(keys),
+                                      err_msg=f"page {p}")
 
 
 @pytest.mark.cuda
