@@ -17,7 +17,9 @@ tensors' device current in the calling thread first: an entry point sets
 its kernel's attributes and launches on whatever device is current, and
 torch's current device is per thread.
 
-``LAUNCHES`` counts, per kernel, the launches the wrappers made, and
+``LAUNCHES`` counts, per kernel, the launches the wrappers made (the
+texture postprocess and preprocess kernels of precondition.cu both under
+"precond"), and
 ``SWEEP_LAUNCHES`` splits the sweep kernel's count by group width; a run
 resets both (``reset_launches``) and reads them to show that its main
 path went through the kernels. Threads that launch on several devices at
@@ -37,13 +39,14 @@ CSRC = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libbrotlig_kernels.so")
 SOURCES = ("tables.cu", "decode.cu", "phase_a.cu", "sweep.cu",
-           "dp_parse.cu", "pack.cu", "match.cu", "cost_model.cu")
+           "dp_parse.cu", "pack.cu", "match.cu", "cost_model.cu",
+           "precondition.cu")
 HEADERS = ("lane_ops.cuh", "page_round.cuh", "page_tables.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"tables": 0, "decode": 0, "phase_a": 0, "sweep": 0,
-            "dp_parse": 0, "pack": 0, "match": 0, "cost": 0}
+            "dp_parse": 0, "pack": 0, "match": 0, "cost": 0, "precond": 0}
 SWEEP_LAUNCHES = {128: 0, 512: 0, 1024: 0, 2048: 0}
 
 _lock = threading.Lock()
@@ -176,6 +179,10 @@ def library():
         lib.blg_cost_positions.restype = i32
         lib.blg_cost_positions.argtypes = [vp, vp, vp, vp, i32, i32, i32, vp,
                                            vp, vp, vp, vp, vp]
+        lib.blg_postprocess.restype = i32
+        lib.blg_postprocess.argtypes = [vp, vp, vp, vp, vp]
+        lib.blg_preprocess.restype = i32
+        lib.blg_preprocess.argtypes = [vp, vp, vp, vp, vp, vp]
         _lib = lib
         return _lib
 

@@ -1,10 +1,20 @@
 """BCn post-processing on a torch device: per-page delta decode and
-decondition (port of brotlig_tpu/ops/precondition.py, whose XLA functions
-become torch ops here; none of it is a Pallas kernel).
+decondition, and the encode side's condition and delta encode (port of
+brotlig_tpu/ops/precondition.py, whose jitted region has no Pallas
+kernel).
 
 The reference deconditions with a per-byte address transform inside the
-page loop (PageDecoder.cpp:243-265) and delta-decodes with a serial prefix
-loop (:467-471). Both are dataflow here:
+page loop (PageDecoder.cpp:243-265, BrotliGCompute.hlsl:978-1031) and
+delta-decodes with a serial prefix loop (:467-471). The entry points here,
+postprocess_flat_device, postprocess_device and preprocess_device, do the
+same with closed-form addresses (ops/precondition_kernel.py): the
+hand-written kernels of csrc/precondition.cu on a CUDA tensor, their plain
+int64 torch versions on a CPU tensor. No map plane is built.
+
+The JAX package's form stays below as the PyTorch yardstick that
+chip_smoke.py times beside the kernels, and no entry point reaches it:
+map planes built once per (device, geometry, size, page split) and kept on
+that device, then
 
 * delta decode: one global cumsum, from which each span subtracts the sum
   before its start. The arithmetic is uint8 throughout: the sums wrap
@@ -12,9 +22,6 @@ loop (:467-471). Both are dataflow here:
   in int32 and masks with & 255), and a temporary costs one byte a byte;
 * decondition: one gather through the inverse of the shared condition
   index map (format/precondition.py::build_cond_map), with int32 indices.
-
-The maps are built once per (device, geometry, size, page split) and kept
-on that device.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import torch
 
 from ..format.precondition import (DataConditionParams, _color_intersections,
                                    build_cond_map)
+from . import precondition_kernel as PK
 
 U8 = torch.uint8
 
@@ -167,29 +175,26 @@ def _delta_encode_device(data_u8, starts, in_span):
 
 def preprocess_device(data: bytes, params: DataConditionParams,
                       page_size: int, device):
-    """Condition (forward gather) and per-page delta encode on `device`.
+    """Condition and per-page delta encode on `device`: the kernel on a
+    card, its plain version on the CPU.
 
     The encode-side mirror of postprocess_device. Returns (conditioned
-    bytes, delta-encoded bytes, per-page isdelta flags): pages feed the
+    bytes, delta-encoded bytes, per-page isdelta flags): a page is flagged
+    when delta_encode is set and a delta span lies in it. Pages feed the
     encoder from the delta form, but a raw-page fallback must store the
     conditioned NON-delta bytes (the decoder only delta-decodes
     compressed pages, ref PageDecoder.cpp:70-76)."""
     n = len(data)
     x = _from_bytes(data, device)
-    idx, valid = _fwd_maps(params, n, x.device)
-    cond = _gather_u8(x, idx, valid)
-
-    num_pages = (n + page_size - 1) // page_size
-    isdelta = [False] * num_pages
-    delta = cond
-    if params.delta_encode:
-        masks = _delta_masks(params, n, page_size, x.device)
-        if masks is not None:
-            starts, in_span, isdelta = masks
-            isdelta = list(isdelta)
-            delta = _delta_encode_device(cond, starts, in_span)
+    geom = PK.pack_geometry(params, n, page_size)
+    isdelta = PK.span_pages(geom) & bool(params.delta_encode)
+    flags = torch.from_numpy(isdelta.astype(np.uint8))
+    if x.device.type == "cpu":
+        cond, delta = PK.preprocess_plain(x, geom, flags)
+    else:
+        cond, delta = PK.preprocess_cuda(x, geom, flags)
     return (cond.cpu().numpy().tobytes(), delta.cpu().numpy().tobytes(),
-            isdelta)
+            isdelta.tolist())
 
 
 def delta_spans(params: DataConditionParams, total: int, page_size: int):
@@ -217,15 +222,14 @@ def postprocess_device(conditioned: bytes, params: DataConditionParams,
 
 def postprocess_flat_device(x, params: DataConditionParams,
                             page_size: int, isdelta_pages=None):
-    """Delta decode and decondition gather of a flat uint8 tensor on its
-    own device, through the cached map planes there; returns a tensor on
-    that device (no host roundtrip: the analog of the reference writing
-    BCn bytes straight from its decode kernel,
-    BrotliGCompute.hlsl:978-1031)."""
+    """Delta decode and decondition of a flat uint8 tensor on its own
+    device, with closed-form addresses: the kernel on a card, its plain
+    version on the CPU; returns a tensor on that device (no host
+    roundtrip: the analog of the reference writing BCn bytes straight
+    from its decode kernel, BrotliGCompute.hlsl:978-1031)."""
     n = int(x.shape[0])
-    masks = _delta_masks(params, n, page_size, x.device, isdelta_pages)
-    if masks is not None:
-        starts, in_span, _ = masks
-        x = _delta_decode_device(x, starts, in_span)
-    inv, valid = _inv_maps(params, n, x.device)
-    return _gather_u8(x, inv, valid)
+    geom = PK.pack_geometry(params, n, page_size)
+    flags = PK.page_flags(isdelta_pages, -(-n // page_size))
+    if x.device.type == "cpu":
+        return PK.postprocess_plain(x, geom, flags)
+    return PK.postprocess_cuda(x, geom, flags)

@@ -24,9 +24,15 @@ route and the two-phase route (sweep_cw 128 and 2048 on every container,
 port's own code (the BASELINE config-3 BC1 texture among them) through
 the fused route and the two-phase route at sweep_cw 1024; the launch
 counts, set to 0 before each set of runs and read after it, show that
-every kernel of a route launched once a batch. The device postprocess of
-each texture is held to its plain run on the CPU (tolerance 0) and timed
-beside its bound. The 64 MiB container is decoded five times in a row,
+every kernel of a route launched once a batch and each texture's
+postprocess once a decode. The texture kernels (csrc/precondition.cu:
+the postprocess, delta decode and decondition, and the preprocess,
+condition and delta encode, with closed-form addresses) are held to their
+plain versions on the card (tolerance 0, outputs poisoned beforehand) on
+each texture, and timed beside the map path they replaced (the JAX
+package's form, its planes built for the yardstick) and their bound; the
+first texture preprocess and decode in the process are timed apart from
+warm ones. The 64 MiB container is decoded five times in a row,
 and the pipeline's batch loop is run under torch's sync debug mode. A
 pool of 68 archives is decoded in shared batches (decode_archives_batched)
 and one by one. End to end: both routes in turns, the pipeline against
@@ -472,15 +478,24 @@ def batches_of(blob: bytes) -> int:
     return (n + BATCH - 1) // BATCH
 
 
+def preconditioned(blob: bytes) -> int:
+    """1 for a preconditioned container of at least one page, else 0."""
+    from brotlig_tpu_torch.format.headers import parse_container
+    info = parse_container(blob)
+    return int(info.dc_params is not None and info.header.num_pages > 0)
+
+
 def want_launches(cases, runs) -> tuple:
     """The launch counts a list of (container, options) runs makes when
-    every kernel of its route launches once a batch: (counts, sweep
-    counts by width)."""
+    every kernel of its route launches once a batch and a texture's
+    postprocess once a decode: (counts, sweep counts by width)."""
     counts = {"tables": 0, "decode": 0, "phase_a": 0, "sweep": 0,
-              "dp_parse": 0, "pack": 0, "match": 0, "cost": 0}
+              "dp_parse": 0, "pack": 0, "match": 0, "cost": 0, "precond": 0}
     by_cw = dict.fromkeys(SWEEP_CWS, 0)
     for name, opts in runs:
         nb = batches_of(cases[name][1])
+        # a texture's postprocess: one launch a decode
+        counts["precond"] += preconditioned(cases[name][1])
         counts["tables"] += nb
         if opts.get("variant") == "two_phase":
             counts["phase_a"] += nb
@@ -621,8 +636,10 @@ def textures(dev) -> dict:
     (bench.py:547-583: a 4096 x 8192 BC1 texture, 16 MiB, 64 KiB pages,
     swizzle and delta), a BC3 texture with mips and no swizzle (raw pages
     among compressed ones), a random BC5 texture (raw pages only) and a
-    BC1 texture at 32 KiB pages."""
+    BC1 texture at 32 KiB pages. The first texture's preprocess is timed
+    on its first call in the process and warm."""
     import numpy as np
+    import torch
     from brotlig_tpu_torch.format import constants as FC
     specs = [
         ("config-3 BC1 4096x8192, swizzle+delta, 64 KiB pages",
@@ -639,11 +656,24 @@ def textures(dev) -> dict:
          FC.DATA_FORMAT_BC1, 2048, 2048, 1, True, True, 32768,
          lambda n: make_bc1(2048, 2048)),
     ]
+    from brotlig_tpu_torch.ops.precondition import preprocess_device
     out = {}
     for name, fmt, w, h, mips, swz, delta, page, gen in specs:
         size = texture_size(fmt, w, h, mips)
         tex = gen(size)
         params = texture_params(fmt, w, h, mips, swz, delta, size)
+        if not out:     # the process's first texture preprocess, then warm
+            ms = []
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                preprocess_device(tex, params, page, dev)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            print(f"[smoke] {name}: preprocess_device (bytes to bytes, on "
+                  f"the card), first call {ms[0]:.3f} ms, warm "
+                  f"{[round(t, 3) for t in ms[1:]]} ms (median "
+                  f"{float(np.median(ms[1:])):.3f}) [{gpu_line()}]",
+                  flush=True)
         out[name] = (tex, texture_container(tex, params, page, dev), params,
                      page)
     return out
@@ -673,39 +703,152 @@ def texture_plane(blob: bytes, dev):
     return plane.reshape(-1)[: info.out_size], flagged, ps
 
 
-def postprocess_phase(name, tex, blob, params, gpu) -> dict:
-    """The device postprocess (delta decode and decondition gather) of a
-    texture's decoded plane on the card against its plain run on the CPU
-    (tolerance 0), both against the texture; its time alone on the card
-    (CUDA events, maps cached) beside its bound, and the bytes the plane
-    and the cached maps hold on the card."""
+def poisoned(n: int, dev):
+    """A uint8 [n] tensor on dev whose every byte is 0xA5."""
     import torch
+    return torch.full((n,), 0xA5, dtype=torch.uint8, device=dev)
+
+
+def map_bytes_of(maps) -> int:
+    return sum(t.numel() * t.element_size() for t in maps)
+
+
+def drop_maps(before: set) -> None:
+    """Free the yardstick's map planes: the cache entries made since
+    `before` (the keys it held then)."""
     from brotlig_tpu_torch.ops import precondition as pre
+    for key in set(pre._MAP_CACHE) - before:
+        del pre._MAP_CACHE[key]
+
+
+def postprocess_phase(name, tex, blob, params, gpu) -> dict:
+    """The texture postprocess (delta decode and decondition,
+    csrc/precondition.cu) of a texture's decoded plane on the card: the
+    entry point's result, the device bytes it leaves beside its output
+    and its map cache (none); the kernel into a poisoned output against
+    its plain version on the card (tolerance 0) and the texture; the
+    kernel's raw launches timed (CUDA events) beside the plain version's
+    one run, the JAX package's map path (its planes built here and cached,
+    the PyTorch yardstick) and the bound without maps (the plane read
+    once, the texture written once)."""
+    import torch
+    from brotlig_tpu_torch import _kernels
+    from brotlig_tpu_torch.ops import precondition as pre
+    from brotlig_tpu_torch.ops import precondition_kernel as PK
     dev = torch.device("cuda")
     flat, flagged, ps = texture_plane(blob, dev)
+    n = int(flat.shape[0])
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
     got = pre.postprocess_flat_device(flat, params, ps, flagged)
     torch.cuda.synchronize()
-    want = pre.postprocess_flat_device(flat.cpu(), params, ps, flagged)
-    err = max_abs_err((got.cpu(),), (want,))
+    left = (torch.cuda.memory_allocated(dev) - held
+            - got.untyped_storage().nbytes())
+    cached = [k for k in pre._MAP_CACHE if k[0] in ("inv", "fwd", "delta")]
+    if left != 0 or cached:
+        raise AssertionError(f"{name}: the postprocess left {left} B on the "
+                             f"card beside its output, maps {cached}")
+    geom = PK.pack_geometry(params, n, ps)
+    flags = PK.page_flags(flagged, -(-n // ps))
+    out = PK.postprocess_cuda(flat, geom, flags, out=poisoned(n, dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = PK.postprocess_plain(flat, geom, flags)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max_abs_err((out, got), (want, want))
     if err != 0 or got.cpu().numpy().tobytes() != tex:
-        raise AssertionError(f"{name}: device postprocess differs from "
-                             f"plain ({err}) or from the texture")
-    n = int(flat.shape[0])
+        raise AssertionError(f"{name}: postprocess kernel differs from its "
+                             f"plain version ({err}) or from the texture")
+    fl = None if flags is None else flags.to(dev)
+    run = raw_launch(_kernels.library().blg_postprocess,
+                     [geom, flat, fl, out], dev)
+    ms = time_ms(run, REPS)
+    before = set(pre._MAP_CACHE)
     masks = pre._delta_masks(params, n, ps, dev, flagged)
     inv, valid = pre._inv_maps(params, n, dev)
     maps = [inv, valid] + ([] if masks is None else list(masks[:2]))
-    map_bytes = sum(t.numel() * t.element_size() for t in maps)
-    ms = time_ms(lambda: pre.postprocess_flat_device(flat, params, ps,
-                                                     flagged), REPS)
-    # read once: the plane and the maps; written once: the texture
-    b = bound(2 * n + map_bytes, 0)
-    print(f"[smoke] postprocess on the card == plain on the CPU == texture "
-          f"(tolerance 0), {name}: {ms:.4f} ms, bound {b['bound_ms']:.4f} "
-          f"ms ({b['bound_by']}); resident: plane "
-          f"{flat.untyped_storage().nbytes()} B, maps {map_bytes} B "
-          f"({', '.join(f'{tuple(t.shape)} {t.dtype}' for t in maps)}) "
-          f"[{gpu}]", flush=True)
-    return {"ms": ms, "bound_ms": b["bound_ms"], "map_bytes": map_bytes}
+
+    def map_path():
+        x = flat if masks is None else pre._delta_decode_device(
+            flat, masks[0], masks[1])
+        return pre._gather_u8(x, inv, valid)
+    if not torch.equal(map_path(), want):
+        raise AssertionError(f"{name}: the map path differs")
+    map_ms = time_ms(map_path, REPS)
+    nmap = map_bytes_of(maps)
+    drop_maps(before)
+    b = bound(2 * n, 0)
+    print(f"[smoke] postprocess kernel == plain == texture (tolerance 0, "
+          f"output poisoned), {name}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.1f} ms (one run on the card), the map path "
+          f"{map_ms:.4f} ms (maps cached), bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}: {2 * n} B, no maps), "
+          f"{b['bound_ms'] / ms:.1%} of it; resident: plane "
+          f"{flat.untyped_storage().nbytes()} B, beside the output {left} B, "
+          f"maps 0 B (the map path's: {nmap} B) [{gpu}]", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, **b, "library_ms": map_ms,
+            "max_abs_err": err, "map_bytes": nmap, "left_bytes": left}
+
+
+def preprocess_phase(name, tex, params, page, gpu) -> dict:
+    """The texture preprocess (condition and delta encode,
+    csrc/precondition.cu) of a texture on the card: the kernel into two
+    poisoned outputs against its plain version on the card (tolerance 0)
+    and the map path's bytes; its raw launches timed beside the plain
+    version's one run, the map path (planes cached) and the bound without
+    maps (the texture read once, two streams written)."""
+    import numpy as np
+    import torch
+    from brotlig_tpu_torch import _kernels
+    from brotlig_tpu_torch.ops import precondition as pre
+    from brotlig_tpu_torch.ops import precondition_kernel as PK
+    dev = torch.device("cuda")
+    x = torch.from_numpy(np.frombuffer(tex, np.uint8).copy()).to(dev)
+    n = len(tex)
+    geom = PK.pack_geometry(params, n, page)
+    flags = torch.from_numpy(
+        (PK.span_pages(geom) & bool(params.delta_encode)).astype(np.uint8))
+    cond, delta = PK.preprocess_cuda(x, geom, flags,
+                                     out=(poisoned(n, dev), poisoned(n, dev)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = PK.preprocess_plain(x, geom, flags)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max_abs_err((cond, delta), want)
+    before = set(pre._MAP_CACHE)
+    idx, valid = pre._fwd_maps(params, n, dev)
+    masks = pre._delta_masks(params, n, page, dev) \
+        if params.delta_encode else None
+    maps = [idx, valid] + ([] if masks is None else list(masks[:2]))
+
+    def map_path():
+        c = pre._gather_u8(x, idx, valid)
+        return c, (c if masks is None else
+                   pre._delta_encode_device(c, masks[0], masks[1]))
+    if err != 0 or any(not torch.equal(a, b) for a, b in
+                       zip(map_path(), want)):
+        raise AssertionError(f"{name}: preprocess kernel differs from its "
+                             f"plain version ({err}) or the map path")
+    map_ms = time_ms(map_path, REPS)
+    nmap = map_bytes_of(maps)
+    drop_maps(before)
+    writes_delta = delta is not cond
+    fl = flags.to(dev)
+    run = raw_launch(_kernels.library().blg_preprocess,
+                     [geom, x, fl, cond, delta if writes_delta else None], dev)
+    ms = time_ms(run, REPS)
+    b = bound((3 if writes_delta else 2) * n, 0)
+    print(f"[smoke] preprocess kernel == plain == the map path (tolerance 0, "
+          f"outputs poisoned), {name}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.1f} ms (one run on the card), the map path "
+          f"{map_ms:.4f} ms (maps cached, {nmap} B), bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}), "
+          f"{b['bound_ms'] / ms:.1%} of it; {int(flags.sum())} of "
+          f"{len(flags)} pages delta-coded [{gpu}]", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, **b, "library_ms": map_ms,
+            "max_abs_err": err}
 
 
 # ---------------------------------------------------------------------------
@@ -911,7 +1054,7 @@ def sharded_phase(data: bytes, blob: bytes, gpu) -> dict:
                                                      shard_bounds)
     n_comp = len(parse_container(blob).compressed_page_indices())
     lists = {"device_list()": None, "[cuda:0, cuda:0]": ["cuda:0", "cuda:0"]}
-    total = {"tables": 0, "decode": 0}
+    total = {"tables": 0, "decode": 0, "precond": 0}
     for name, devs in lists.items():
         shares = [hi - lo for lo, hi in
                   shard_bounds(n_comp, len(device_list(devs)))]
@@ -924,7 +1067,7 @@ def sharded_phase(data: bytes, blob: bytes, gpu) -> dict:
                                  "differs from the input")
         if counts != {"tables": want, "decode": want, "phase_a": 0,
                       "sweep": 0, "dp_parse": 0, "pack": 0, "match": 0,
-                      "cost": 0}:
+                      "cost": 0, "precond": 0}:
             raise AssertionError(f"decode_stream_sharded over {name} "
                                  f"launched {counts}, want {want} each")
         for k in total:
@@ -972,17 +1115,19 @@ def dryrun_phase(gpu) -> dict:
     _, blob = entry.bc1_container(64 * 1024, max(n, 4), "cuda")
     n_comp = len(parse_container(blob).compressed_page_indices())
     want = sum(hi > lo for lo, hi in shard_bounds(n_comp, n)) + n
-    # the BC1 container is encoded by the full route at q1: one batch;
-    # then find_commands once a device
+    # the BC1 container is encoded by the full route at q1: one batch,
+    # its preprocess; then its postprocess; then find_commands once a
+    # device
     match = MK.LAUNCHES_PER_CALL * (1 + n)
     if counts != {"tables": want, "decode": want, "phase_a": 0, "sweep": 0,
-                  "dp_parse": 0, "pack": 1, "match": match, "cost": 0}:
+                  "dp_parse": 0, "pack": 1, "match": match, "cost": 0,
+                  "precond": 2}:
         raise AssertionError(f"dryrun_multichip({n}) launched {counts}, "
-                             f"want {want} each, one pack and {match} "
-                             "matcher launches")
+                             f"want {want} each, one pack, {match} "
+                             "matcher and two precond launches")
     print(f"[smoke] dryrun_multichip({n}): {secs:.1f} s, launches {counts} "
           f"[{gpu}]", flush=True)
-    return {k: counts[k] for k in ("tables", "decode")}
+    return {k: counts[k] for k in ("tables", "decode", "precond")}
 
 
 def gather_phase(blobs, datas, enc_in, gpu) -> None:
@@ -1021,7 +1166,8 @@ def gather_phase(blobs, datas, enc_in, gpu) -> None:
             for r in res:
                 if not (r["decode_ok"] and r["encode_ok"]) or \
                         r["launches"]["tables"] < 1 or \
-                        r["launches"]["decode"] < 1:
+                        r["launches"]["decode"] < 1 or \
+                        r["launches"]["precond"] < 1:
                     raise AssertionError(f"{backend} gather: {r}")
             if len({r["encoded"] for r in res}) != 1:
                 raise AssertionError(f"{backend} gather: the ranks hold "
@@ -1082,18 +1228,22 @@ def container_of(blobs, page: int) -> bytes:
 def decode_on_card(blob: bytes, data: bytes, what: str) -> dict:
     """Decode blob on the card on the fused route and the two-phase route
     (sweep_cw 1024), each equal to data and launching every kernel of its
-    route once a batch; returns the launch counts by route."""
+    route once a batch (and a texture's postprocess once); returns the
+    launch counts by route."""
     import brotlig_tpu_torch
     from brotlig_tpu_torch import _kernels
     nb = batches_of(blob)
+    pc = preconditioned(blob)
     counts = {}
     for route, opts, want in (
             ("fused", {},
              {"tables": nb, "decode": nb, "phase_a": 0, "sweep": 0,
-              "dp_parse": 0, "pack": 0, "match": 0, "cost": 0}),
+              "dp_parse": 0, "pack": 0, "match": 0, "cost": 0,
+              "precond": pc}),
             ("two_phase", {"variant": "two_phase", "sweep_cw": 1024},
              {"tables": nb, "decode": 0, "phase_a": nb, "sweep": nb,
-              "dp_parse": 0, "pack": 0, "match": 0, "cost": 0})):
+              "dp_parse": 0, "pack": 0, "match": 0, "cost": 0,
+              "precond": pc})):
         _kernels.reset_launches()
         if brotlig_tpu_torch.decode(blob, device="cuda", **opts) != data:
             raise AssertionError(f"{what}: decode on the card {opts} "
@@ -1292,17 +1442,20 @@ def hybrid_phase(data: bytes, native_blob: bytes, gpu) -> dict:
 def texture_encode_phase(name: str, tex: bytes, params, gpu) -> dict:
     """The config-3 texture encoded on the card by the hybrid and by the
     full route at q1 and at q11 (conditioned and delta-encoded on the
-    card; the full route in its default 64-page batches), each timed with
-    its peak device memory and DP kernel launches (iterations x batches
-    at q11, none otherwise) and matcher kernel launches (a call a batch,
-    two at q11) and decoded on the card back to the texture.
+    card by the preprocess kernel, one launch an encode; the full route
+    in its default 64-page batches), each timed with its peak device
+    memory and DP kernel launches (iterations x batches at q11, none
+    otherwise) and matcher kernel launches (a call a batch, two at q11)
+    and decoded on the card back to the texture; first, the hybrid and
+    the full route at q1 each timed on their first call in the process
+    and again.
     Returns (the decode launches, the DP inputs of the q11 route's first
     batch and iteration: litq, cand_len, dpackq, jointEq, jointLq, and
     the serializer's first-batch arguments: the q1 route's greedy pack and
     the q11 route's DP pack, with the pack kernel launches of both, the
-    matcher kernel launches of all three routes, and the q11 route's
-    first cost-model arguments and cost kernel launches, iterations x
-    batches x 2)."""
+    matcher kernel launches of all three routes, the preprocess kernel
+    launches, and the q11 route's first cost-model arguments and cost
+    kernel launches, iterations x batches x 2)."""
     import torch
     import brotlig_tpu_torch
     from brotlig_tpu_torch import _kernels
@@ -1314,6 +1467,18 @@ def texture_encode_phase(name: str, tex: bytes, params, gpu) -> dict:
     dp_parse = parse_dp.dp_parse
     build_cost_model = parse_dp.build_cost_model
     pack_partitioned = encode_pack.pack_partitioned
+    # the texture's first encode by each route in the process, then warm
+    for backend, quality in (("hybrid", 11), ("full", 1)):
+        ms = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            brotlig_tpu_torch.encode(tex, dc_params=params, backend=backend,
+                                     quality=quality, device="cuda")
+            ms.append((time.perf_counter() - t0) * 1e3)
+        print(f"[smoke] {name}, {backend} encode (q{quality}) on the card: "
+              f"first call {ms[0]:.1f} ms, then {ms[1]:.1f} ms [{gpu}]",
+              flush=True)
 
     def recorded(*args):
         if not first:
@@ -1351,6 +1516,7 @@ def texture_encode_phase(name: str, tex: bytes, params, gpu) -> dict:
         pk = _kernels.LAUNCHES["pack"]
         mt = _kernels.LAUNCHES["match"]
         ct = _kernels.LAUNCHES["cost"]
+        pc = _kernels.LAUNCHES["precond"]
         full = backend == "full"
         want = iters * nbatch if (backend, quality) == ("full", 11) else 0
         want_ct = want * cost_kernel.LAUNCHES_PER_CALL
@@ -1358,12 +1524,15 @@ def texture_encode_phase(name: str, tex: bytes, params, gpu) -> dict:
         # the greedy cover a batch, and the DP's candidates at q11
         want_mt = (match_kernel.LAUNCHES_PER_CALL * nbatch
                    * (1 + (full and quality >= 10)))
-        if dp != want or pk != want_pk or mt != want_mt or ct != want_ct:
+        if dp != want or pk != want_pk or mt != want_mt or ct != want_ct \
+                or pc != 1:
             raise AssertionError(f"{name}, {backend} q{quality}: {dp} DP, "
-                                 f"{pk} pack, {mt} matcher and {ct} cost "
-                                 f"kernel launches, want {want}, {want_pk}, "
-                                 f"{want_mt} and {want_ct}")
+                                 f"{pk} pack, {mt} matcher, {ct} cost and "
+                                 f"{pc} preprocess kernel launches, want "
+                                 f"{want}, {want_pk}, {want_mt}, {want_ct} "
+                                 "and 1")
         packs["match launches"] = packs.get("match launches", 0) + mt
+        packs["precond launches"] = packs.get("precond launches", 0) + pc
         packs["cost launches"] = packs.get("cost launches", 0) + ct
         if full:    # the first batch's pack: greedy at q1, the DP's at q11
             packs[f"q{quality}"] = calls[quality >= 10]
@@ -1372,7 +1541,8 @@ def texture_encode_phase(name: str, tex: bytes, params, gpu) -> dict:
               f"{ms:.1f} ms, ratio {len(tex) / len(blob):.4f}, peak "
               f"{peak / 2**20:.1f} MiB allocated, DP kernel launches {dp}, "
               f"pack kernel launches {pk}, matcher kernel launches {mt}, "
-              f"cost kernel launches {ct} [{gpu}]", flush=True)
+              f"cost kernel launches {ct}, preprocess kernel launches {pc} "
+              f"[{gpu}]", flush=True)
         launches.append(decode_on_card(blob, tex, f"{name}, {backend} "
                                        f"encode (q{quality})"))
     packs["cost in"] = tuple(model_in)
@@ -2568,6 +2738,13 @@ def main() -> int:
     print(f"[smoke] textures built in {time.perf_counter() - t0:.1f} s",
           flush=True)
     tex_names = list(texs)
+    # the process's first texture decode (its postprocess's first call)
+    tex, blob = cases[tex_names[0]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if brotlig_tpu_torch.decode(blob, device="cuda") != tex:
+        raise AssertionError("the first texture decode differs")
+    first_tex_ms = (time.perf_counter() - t0) * 1e3
 
     # ---- the main path, each route, launch counts checked ----
     launched = {}
@@ -2604,10 +2781,11 @@ def main() -> int:
     if native.decode(blob16) != data16:
         raise AssertionError("native CPU decoder disagrees with the input")
 
-    # ---- the postprocess on the card against its plain version ----
+    # ---- the texture kernels against their plain versions ----
     post = {name: postprocess_phase(name, tex, blob, params, gpu)
-            for name, (tex, blob, params, _) in texs.items()
-            if parse_container(blob).compressed_page_indices()}
+            for name, (tex, blob, params, _) in texs.items()}
+    prep = {name: preprocess_phase(name, tex, params, page, gpu)
+            for name, (tex, _, params, page) in texs.items()}
 
     # ---- the pipeline: one container five times in a row, no sync ----
     data64, blob64 = cases[names[1]]
@@ -2621,7 +2799,8 @@ def main() -> int:
           f"run equal to the input; launches {counts} (once a batch: "
           f"{nb})", flush=True)
     if counts != {"tables": nb, "decode": nb, "phase_a": 0, "sweep": 0,
-                  "dp_parse": 0, "pack": 0, "match": 0, "cost": 0}:
+                  "dp_parse": 0, "pack": 0, "match": 0, "cost": 0,
+                  "precond": 0}:
         raise AssertionError("the repeated decodes did not launch their "
                              "kernels once a batch")
     pipeline_never_syncs(blob64, dev)
@@ -2637,6 +2816,8 @@ def main() -> int:
           f"B, {len(blobs) - 64} preconditioned) built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     nb = pool_batches(blobs)
+    n_tex = sum(map(preconditioned, blobs))
+    precond_pool = 0
     pool_ms = []
     for r in range(3):
         _kernels.reset_launches()
@@ -2649,9 +2830,11 @@ def main() -> int:
             raise AssertionError(f"pooled decode {r} differs from the "
                                  "inputs")
         if pool != {"tables": nb, "decode": nb, "phase_a": 0, "sweep": 0,
-                    "dp_parse": 0, "pack": 0, "match": 0, "cost": 0}:
+                    "dp_parse": 0, "pack": 0, "match": 0, "cost": 0,
+                    "precond": n_tex}:
             raise AssertionError(f"pooled decode launched {pool}, want "
-                                 f"{nb} batches")
+                                 f"{nb} batches and {n_tex} postprocesses")
+        precond_pool += pool["precond"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for blob, d in zip(blobs, datas):
@@ -2736,12 +2919,14 @@ def main() -> int:
             if got != tex:
                 raise AssertionError(f"timed texture decode ({mode}) "
                                      "differs")
-    print(f"[smoke] {name}, fused route, end to end: " + "; ".join(
-        f"{m} {[round(t, 3) for t in ts]} ms -> "
-        f"{len(tex) / float(np.median(ts[1:])) / 1e6:.4f} GB/s (median of "
-        f"warm runs)" for m, ts in times.items())
-        + f"; postprocess alone {post[name]['ms']:.4f} ms, bound "
-        f"{post[name]['bound_ms']:.4f} ms [{gpu}]", flush=True)
+    print(f"[smoke] {name}, fused route, end to end: the process's first "
+          f"texture decode {first_tex_ms:.3f} ms; " + "; ".join(
+              f"{m} {[round(t, 3) for t in ts]} ms (median of warm runs "
+              f"{float(np.median(ts[1:])):.3f} ms) -> "
+              f"{len(tex) / float(np.median(ts[1:])) / 1e6:.4f} GB/s"
+              for m, ts in times.items())
+          + f"; postprocess alone {post[name]['ms']:.4f} ms, bound "
+          f"{post[name]['bound_ms']:.4f} ms [{gpu}]", flush=True)
 
     # ---- sharded and distributed ----
     t0 = time.perf_counter()
@@ -2814,6 +2999,7 @@ def main() -> int:
           f"kernel launches on the encode main paths {cost_launches_main} "
           f"(q11 {q11['costs']}, texture {tex_packs['cost launches']}) "
           f"[{gpu}]", flush=True)
+    precond_enc = tex_packs["precond launches"]
     del tex_packs, q1_in, q11_in, cost_in, sized
     for got in [enc["launches"], hyb["launches"], q11["launches"]] \
             + tex_launches:
@@ -2822,6 +3008,15 @@ def main() -> int:
             two[k] += got["two_phase"][k]
         by_cw[1024] += got["two_phase"]["sweep"]
     print(f"[smoke] encode phases {time.perf_counter() - t0:.1f} s [{gpu}]",
+          flush=True)
+    # the texture kernels' launches on the main paths: the postprocess of
+    # every checked decode (the dry run's among them), the pool's, and
+    # the preprocess of the texture encodes
+    precond_main = fused["precond"] + two["precond"] + precond_pool + \
+        precond_enc
+    print(f"[smoke] texture kernel launches on the main paths "
+          f"{precond_main} (decodes {fused['precond'] + two['precond']}, "
+          f"pool {precond_pool}, texture encodes {precond_enc}) [{gpu}]",
           flush=True)
 
     src = "brotlig_tpu_torch/csrc/"
@@ -2853,7 +3048,15 @@ def main() -> int:
          "replaces": "brotlig_tpu/ops/parse_dp.py:71",
          "launches": cost_launches_main,
          **{**k_cost["q11 iteration 1"], "max_abs_err": max(
-             r["max_abs_err"] for r in k_cost.values())}}]
+             r["max_abs_err"] for r in k_cost.values())}},
+        {"name": "precond", "route": "cuda",
+         "source": src + "precondition.cu",
+         "replaces": "brotlig_tpu/ops/precondition.py:109",
+         "launches": precond_main,
+         **{k: v for k, v in post[tex_names[0]].items()
+            if k not in ("map_bytes", "left_bytes")},
+         "max_abs_err": max(r["max_abs_err"] for r in
+                            list(post.values()) + list(prep.values()))}]
     print(f"[smoke] whole run {time.perf_counter() - t_start:.1f} s, "
           "builds included", flush=True)
     print(json.dumps({"kernels": kernels}))
