@@ -180,9 +180,15 @@ def library():
         lib.blg_cost_positions.argtypes = [vp, vp, vp, vp, i32, i32, i32, vp,
                                            vp, vp, vp, vp, vp]
         lib.blg_postprocess.restype = i32
-        lib.blg_postprocess.argtypes = [vp, vp, vp, vp, vp]
+        lib.blg_postprocess.argtypes = [vp, vp, vp, vp, vp, vp, vp]
         lib.blg_preprocess.restype = i32
-        lib.blg_preprocess.argtypes = [vp, vp, vp, vp, vp, vp]
+        lib.blg_preprocess.argtypes = [vp, vp, vp, vp, vp, vp, vp]
+        lib.blg_precond_tiles.restype = ctypes.c_longlong
+        lib.blg_precond_tiles.argtypes = [vp]
+        lib.blg_precond_grid.restype = i32
+        lib.blg_precond_grid.argtypes = [vp, i32]
+        lib.blg_precond_tile_bytes.restype = i32
+        lib.blg_precond_tile_bytes.argtypes = []
         _lib = lib
         return _lib
 

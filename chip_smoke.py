@@ -27,12 +27,14 @@ counts, set to 0 before each set of runs and read after it, show that
 every kernel of a route launched once a batch and each texture's
 postprocess once a decode. The texture kernels (csrc/precondition.cu:
 the postprocess, delta decode and decondition, and the preprocess,
-condition and delta encode, with closed-form addresses) are held to their
-plain versions on the card (tolerance 0, outputs poisoned beforehand) on
-each texture, and timed beside the map path they replaced (the JAX
-package's form, its planes built for the yardstick) and their bound; the
-first texture preprocess and decode in the process are timed apart from
-warm ones. The 64 MiB container is decoded five times in a row,
+condition and delta encode, with closed-form addresses, a persistent grid
+of row-pair tiles) are held to their plain versions on the card
+(tolerance 0, outputs poisoned beforehand) on each texture, and timed
+beside their first design's time, a device copy of the same bytes, the
+map path they replaced (the JAX package's form, its planes built for the
+yardstick) and their bound, with the slowest CTA's clock cycles by
+phase; the first texture preprocess and decode in the process are split
+by stage and timed apart from warm ones. The 64 MiB container is decoded five times in a row,
 and the pipeline's batch loop is run under torch's sync debug mode. A
 pool of 68 archives is decoded in shared batches (decode_archives_batched)
 and one by one. End to end: both routes in turns, the pipeline against
@@ -114,6 +116,13 @@ HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 # operations a decoded symbol needs at least: its 15-level range search
 OPS_PER_SYMBOL = 16
+# the texture kernels' first design (8 slices a page): raw launches,
+# ms, postprocess and preprocess, on this script's textures (NVIDIA H100
+# 80GB HBM3, 700.00 W), and the redesign's targets on config-3
+PRECOND_FIRST_MS = {"config-3": (0.0464, 0.0475), "BC3": (0.0177, 0.0140),
+                    "random BC5": (0.0117, 0.0143), "BC1 2048": (0.0124,
+                                                                 0.0095)}
+PRECOND_TARGET_MS = {"config-3": (0.020, 0.030)}
 
 
 def gpu_line() -> str:
@@ -663,20 +672,108 @@ def textures(dev) -> dict:
         tex = gen(size)
         params = texture_params(fmt, w, h, mips, swz, delta, size)
         if not out:     # the process's first texture preprocess, then warm
-            ms = []
-            for _ in range(4):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                preprocess_device(tex, params, page, dev)
-                ms.append((time.perf_counter() - t0) * 1e3)
+            runs = [preprocess_stages(tex, params, page, dev)
+                    for _ in range(4)]
+            if any(r[0] != preprocess_device(tex, params, page, dev)
+                   for r in runs):
+                raise AssertionError("the staged preprocess differs from "
+                                     "preprocess_device")
+            ms = [sum(r[1].values()) for r in runs]
+            first = {k: round(v, 3) for k, v in runs[0][1].items()}
+            warm = {k: round(float(np.median([r[1][k] for r in runs[1:]])),
+                             3) for k in runs[0][1]}
             print(f"[smoke] {name}: preprocess_device (bytes to bytes, on "
-                  f"the card), first call {ms[0]:.3f} ms, warm "
-                  f"{[round(t, 3) for t in ms[1:]]} ms (median "
-                  f"{float(np.median(ms[1:])):.3f}) [{gpu_line()}]",
-                  flush=True)
+                  f"the card), its steps timed apart with the card "
+                  f"synchronised after each: first call {ms[0]:.3f} ms "
+                  f"{json.dumps(first)}, warm {[round(t, 3) for t in ms[1:]]}"
+                  f" ms (median by stage {json.dumps(warm)}) "
+                  f"[{gpu_line()}]", flush=True)
         out[name] = (tex, texture_container(tex, params, page, dev), params,
                      page)
     return out
+
+
+def preprocess_stages(tex: bytes, params, page: int, dev) -> tuple:
+    """ops.precondition.preprocess_device's steps, each timed on the host
+    clock with the card synchronised after it (ms): upload (bytes to a
+    tensor on the card), kernel (geometry, flags and the wrapper's
+    launch), readback (both streams to the host) and to bytes. Returns
+    (its result, the stage times)."""
+    import numpy as np
+    import torch
+    from brotlig_tpu_torch.ops import precondition_kernel as PK
+    clock = time.perf_counter
+    torch.cuda.synchronize()
+    t0 = clock()
+    x = torch.from_numpy(np.frombuffer(tex, np.uint8).copy()).to(dev)
+    torch.cuda.synchronize()
+    t1 = clock()
+    geom = PK.pack_geometry(params, len(tex), page)
+    isdelta = PK.span_pages(geom) & bool(params.delta_encode)
+    flags = torch.from_numpy(isdelta.astype(np.uint8))
+    cond, delta = PK.preprocess_cuda(x, geom, flags)
+    torch.cuda.synchronize()
+    t2 = clock()
+    hc, hd = cond.cpu(), delta.cpu()
+    t3 = clock()
+    res = (hc.numpy().tobytes(), hd.numpy().tobytes(), isdelta.tolist())
+    t4 = clock()
+    return res, {k: (b - a) * 1e3 for k, a, b in (
+        ("upload", t0, t1), ("kernel", t1, t2), ("readback", t2, t3),
+        ("to bytes", t3, t4))}
+
+
+def texture_decode_stages(blob: bytes, dev) -> tuple:
+    """brotlig_tpu_torch.decode's steps for a preconditioned container
+    (fused route), each timed on the host clock with the card
+    synchronised after it (ms): parse, the plane and its raw pages, the
+    compressed pages' decode into the plane (decode_batches), the
+    postprocess (wrapper and kernel), the readback into page-locked
+    memory and the copy to bytes. Returns (the texture, the stage
+    times)."""
+    import numpy as np
+    import torch
+    from brotlig_tpu_torch.format.headers import parse_container
+    from brotlig_tpu_torch.ops.decode import compressed_jobs, decode_batches
+    from brotlig_tpu_torch.ops.precondition import postprocess_flat_device
+    clock = time.perf_counter
+    torch.cuda.synchronize()
+    stamps = [("start", clock())]
+
+    def mark(name):
+        torch.cuda.synchronize()
+        stamps.append((name, clock()))
+    info = parse_container(blob)
+    ps = info.header.page_size
+    comp, offs, szs = compressed_jobs(info)
+    mark("parse")
+    plane = torch.zeros((info.header.num_pages, ps), dtype=torch.uint8,
+                        device=dev)
+    raw_idx = info.raw_page_indices()
+    if raw_idx:
+        rows = np.zeros((len(raw_idx), ps), np.uint8)
+        for r, i in enumerate(raw_idx):
+            n = info.page_out_sizes[i]
+            rows[r, :n] = np.frombuffer(blob, np.uint8, n,
+                                        int(info.offsets[i]))
+        plane.index_copy_(0, torch.tensor(raw_idx, device=dev),
+                          torch.from_numpy(rows).to(dev))
+    mark("plane and raw pages")
+    flagged = set()
+    decode_batches(blob, comp, offs, szs, ps, dev,
+                   lambda keys, _, isdelta: flagged.update(
+                       int(k) for k in keys[isdelta]), BATCH, plane=plane)
+    mark("page decode")
+    res = postprocess_flat_device(plane.reshape(-1)[: info.out_size],
+                                  info.dc_params, ps, flagged)
+    mark("postprocess")
+    host = torch.empty(res.shape, dtype=res.dtype, pin_memory=True)
+    host.copy_(res)
+    mark("readback")
+    out = host.numpy().tobytes()
+    mark("to bytes")
+    return out, {name: round((t - stamps[k][1]) * 1e3, 3)
+                 for k, (name, t) in enumerate(stamps[1:])}
 
 
 def texture_plane(blob: bytes, dev):
@@ -721,16 +818,40 @@ def drop_maps(before: set) -> None:
         del pre._MAP_CACHE[key]
 
 
+def first_design_ms(name: str) -> tuple:
+    """The first design's (postprocess, preprocess) times of a texture and
+    the redesign's targets (the first design's times where none is set)."""
+    key = next(k for k in PRECOND_FIRST_MS if name.startswith(k))
+    return PRECOND_FIRST_MS[key], PRECOND_TARGET_MS.get(
+        key, PRECOND_FIRST_MS[key])
+
+
+def precond_record(rec) -> str:
+    """The slowest CTA of a texture kernel's per-CTA record: its kcycles
+    by phase, its tiles and its total, and the grid."""
+    from brotlig_tpu_torch.ops import precondition_kernel as PK
+    rec = rec.cpu()
+    r = rec[int(rec[:, PK.REC_TOTAL].argmax())].tolist()
+    parts = ", ".join(f"{ph} {r[k] / 1e3:.1f}"
+                      for k, ph in enumerate(PK.PHASES))
+    return (f"slowest of {rec.shape[0]} CTAs: {parts}; {r[PK.REC_TILES]} "
+            f"tiles, {r[PK.REC_TOTAL] / 1e3:.1f} kcycles in all (tiles a "
+            f"CTA {int(rec[:, PK.REC_TILES].min())}-"
+            f"{int(rec[:, PK.REC_TILES].max())})")
+
+
 def postprocess_phase(name, tex, blob, params, gpu) -> dict:
     """The texture postprocess (delta decode and decondition,
     csrc/precondition.cu) of a texture's decoded plane on the card: the
     entry point's result, the device bytes it leaves beside its output
     and its map cache (none); the kernel into a poisoned output against
     its plain version on the card (tolerance 0) and the texture; the
-    kernel's raw launches timed (CUDA events) beside the plain version's
-    one run, the JAX package's map path (its planes built here and cached,
-    the PyTorch yardstick) and the bound without maps (the plane read
-    once, the texture written once)."""
+    kernel's raw launches timed (CUDA events; the look-back's words made
+    once, which the kernel leaves zeroed) beside its first design's time,
+    a device copy of the same n bytes, the plain version's one run, the
+    JAX package's map path (its planes built here and cached, the PyTorch
+    yardstick) and the bound without maps (the plane read once, the
+    texture written once); the slowest CTA's cycles by phase."""
     import torch
     from brotlig_tpu_torch import _kernels
     from brotlig_tpu_torch.ops import precondition as pre
@@ -761,9 +882,18 @@ def postprocess_phase(name, tex, blob, params, gpu) -> dict:
         raise AssertionError(f"{name}: postprocess kernel differs from its "
                              f"plain version ({err}) or from the texture")
     fl = None if flags is None else flags.to(dev)
+    work = PK.lookback_words(geom, dev)
     run = raw_launch(_kernels.library().blg_postprocess,
-                     [geom, flat, fl, out], dev)
+                     [geom, flat, fl, out, work, None], dev)
     ms = time_ms(run, REPS)
+    torch.cuda.synchronize()
+    if int(work.abs().sum()) or not torch.equal(out, want):
+        raise AssertionError(f"{name}: the timed postprocess launches left "
+                             "look-back words set or a wrong texture")
+    dst = torch.empty_like(flat)
+    copy_ms = time_ms(lambda: dst.copy_(flat), REPS)
+    _, rec = PK.postprocess_cuda(flat, geom, flags, out=poisoned(n, dev),
+                                 return_record=True)
     before = set(pre._MAP_CACHE)
     masks = pre._delta_masks(params, n, ps, dev, flagged)
     inv, valid = pre._inv_maps(params, n, dev)
@@ -779,25 +909,33 @@ def postprocess_phase(name, tex, blob, params, gpu) -> dict:
     nmap = map_bytes_of(maps)
     drop_maps(before)
     b = bound(2 * n, 0)
+    (first, _), (target, _) = first_design_ms(name)
     print(f"[smoke] postprocess kernel == plain == texture (tolerance 0, "
-          f"output poisoned), {name}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.1f} ms (one run on the card), the map path "
-          f"{map_ms:.4f} ms (maps cached), bound {b['bound_ms']:.4f} ms "
-          f"({b['bound_by']}: {2 * n} B, no maps), "
-          f"{b['bound_ms'] / ms:.1%} of it; resident: plane "
-          f"{flat.untyped_storage().nbytes()} B, beside the output {left} B, "
-          f"maps 0 B (the map path's: {nmap} B) [{gpu}]", flush=True)
+          f"output poisoned), {name}: kernel {ms:.4f} ms (first design "
+          f"{first:.4f}; target {target:.4f}: "
+          f"{'met' if ms <= target else 'missed'}), copy_ of the {n} B "
+          f"{copy_ms:.4f} ms, plain {plain_ms:.1f} ms (one run on the "
+          f"card), the map path {map_ms:.4f} ms (maps cached), bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {2 * n} B, no maps), "
+          f"{b['bound_ms'] / ms:.1%} of it (copy_ "
+          f"{b['bound_ms'] / copy_ms:.1%}); resident: plane "
+          f"{flat.untyped_storage().nbytes()} B, beside the output {left} B,"
+          f" maps 0 B (the map path's: {nmap} B); {precond_record(rec)} "
+          f"[{gpu}]", flush=True)
     return {"ms": ms, "plain_ms": plain_ms, **b, "library_ms": map_ms,
-            "max_abs_err": err, "map_bytes": nmap, "left_bytes": left}
+            "max_abs_err": err, "map_bytes": nmap, "left_bytes": left,
+            "copy_ms": copy_ms}
 
 
 def preprocess_phase(name, tex, params, page, gpu) -> dict:
     """The texture preprocess (condition and delta encode,
     csrc/precondition.cu) of a texture on the card: the kernel into two
     poisoned outputs against its plain version on the card (tolerance 0)
-    and the map path's bytes; its raw launches timed beside the plain
-    version's one run, the map path (planes cached) and the bound without
-    maps (the texture read once, two streams written)."""
+    and the map path's bytes; its raw launches timed beside its first
+    design's time, a device copy of the same n bytes, the plain version's
+    one run, the map path (planes cached) and the bound without maps (the
+    texture read once, two streams written); the slowest CTA's cycles by
+    phase."""
     import numpy as np
     import torch
     from brotlig_tpu_torch import _kernels
@@ -837,18 +975,30 @@ def preprocess_phase(name, tex, params, page, gpu) -> dict:
     writes_delta = delta is not cond
     fl = flags.to(dev)
     run = raw_launch(_kernels.library().blg_preprocess,
-                     [geom, x, fl, cond, delta if writes_delta else None], dev)
+                     [geom, x, fl, cond, delta if writes_delta else None,
+                      None], dev)
     ms = time_ms(run, REPS)
+    torch.cuda.synchronize()
+    if max_abs_err((cond, delta), want) != 0:
+        raise AssertionError(f"{name}: the timed preprocess launches wrote "
+                             "wrong streams")
+    dst = torch.empty_like(x)
+    copy_ms = time_ms(lambda: dst.copy_(x), REPS)
+    *_, rec = PK.preprocess_cuda(x, geom, flags, return_record=True)
     b = bound((3 if writes_delta else 2) * n, 0)
+    (_, first), (_, target) = first_design_ms(name)
     print(f"[smoke] preprocess kernel == plain == the map path (tolerance 0, "
-          f"outputs poisoned), {name}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.1f} ms (one run on the card), the map path "
-          f"{map_ms:.4f} ms (maps cached, {nmap} B), bound "
-          f"{b['bound_ms']:.4f} ms ({b['bound_by']}), "
+          f"outputs poisoned), {name}: kernel {ms:.4f} ms (first design "
+          f"{first:.4f}; target {target:.4f}: "
+          f"{'met' if ms <= target else 'missed'}), copy_ of the {n} B "
+          f"{copy_ms:.4f} ms, plain {plain_ms:.1f} ms (one run on the "
+          f"card), the map path {map_ms:.4f} ms (maps cached, {nmap} B), "
+          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
           f"{b['bound_ms'] / ms:.1%} of it; {int(flags.sum())} of "
-          f"{len(flags)} pages delta-coded [{gpu}]", flush=True)
+          f"{len(flags)} pages delta-coded; {precond_record(rec)} [{gpu}]",
+          flush=True)
     return {"ms": ms, "plain_ms": plain_ms, **b, "library_ms": map_ms,
-            "max_abs_err": err}
+            "max_abs_err": err, "copy_ms": copy_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -2738,13 +2888,20 @@ def main() -> int:
     print(f"[smoke] textures built in {time.perf_counter() - t0:.1f} s",
           flush=True)
     tex_names = list(texs)
-    # the process's first texture decode (its postprocess's first call)
+    # the process's first texture decode (its postprocess's first call),
+    # split by stage, then warm ones
     tex, blob = cases[tex_names[0]]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    if brotlig_tpu_torch.decode(blob, device="cuda") != tex:
-        raise AssertionError("the first texture decode differs")
-    first_tex_ms = (time.perf_counter() - t0) * 1e3
+    tex_stages = [texture_decode_stages(blob, dev) for _ in range(4)]
+    if any(got != tex for got, _ in tex_stages):
+        raise AssertionError("a staged texture decode differs")
+    first_tex_ms = sum(tex_stages[0][1].values())
+    warm = {k: round(float(np.median([st[k] for _, st in tex_stages[1:]])),
+                     3) for k in tex_stages[0][1]}
+    print(f"[smoke] {tex_names[0]}: the process's first texture decode by "
+          f"stage (the card synchronised after each), {first_tex_ms:.3f} "
+          f"ms: {json.dumps(tex_stages[0][1])}; warm, median by stage of 3,"
+          f" {sum(warm.values()):.3f} ms: {json.dumps(warm)} [{gpu}]",
+          flush=True)
 
     # ---- the main path, each route, launch counts checked ----
     launched = {}
@@ -2920,7 +3077,7 @@ def main() -> int:
                 raise AssertionError(f"timed texture decode ({mode}) "
                                      "differs")
     print(f"[smoke] {name}, fused route, end to end: the process's first "
-          f"texture decode {first_tex_ms:.3f} ms; " + "; ".join(
+          f"texture decode {first_tex_ms:.3f} ms (staged); " + "; ".join(
               f"{m} {[round(t, 3) for t in ts]} ms (median of warm runs "
               f"{float(np.median(ts[1:])):.3f} ms) -> "
               f"{len(tex) / float(np.median(ts[1:])) / 1e6:.4f} GB/s"
@@ -3054,7 +3211,7 @@ def main() -> int:
          "replaces": "brotlig_tpu/ops/precondition.py:109",
          "launches": precond_main,
          **{k: v for k, v in post[tex_names[0]].items()
-            if k not in ("map_bytes", "left_bytes")},
+            if k not in ("map_bytes", "left_bytes", "copy_ms")},
          "max_abs_err": max(r["max_abs_err"] for r in
                             list(post.values()) + list(prep.values()))}]
     print(f"[smoke] whole run {time.perf_counter() - t_start:.1f} s, "

@@ -5,10 +5,19 @@ On the CPU, the plain versions against the JAX package's numpy functions
 (build_cond_map, condition, decondition, delta_encode_page,
 delta_decode_page), which compile no JAX executable, on geometries that
 cover BC1-BC5, swizzle on and off, widths and heights in blocks that are
-odd or below 2, 4 mips, D3D12-aligned pitches with padding, 32, 64 and
-128 KiB pages, a partial last page, a texture smaller than a page and
-every page, no page or some pages flagged; one case against the jitted
-JAX entry points. Tolerance 0: the format fixes every byte.
+odd or below 2, 4 mips and a full chain down to 1 x 1, D3D12-aligned
+pitches with padding and an odd row pitch, a mip wider than a tile,
+32, 64 and 128 KiB pages, pages that cut a colour segment inside a tile,
+a partial last page, a texture smaller than a page and every page, no
+page or some pages flagged; one case against the jitted JAX entry
+points. The kernels' tile cut (tile_plan, at the kernels' tile size and
+at 1 KiB, which makes every wide-mip case occur) partitions each
+sub-stream and the texture, and the addresses it composes equal
+build_cond_map's; the look-back's carries (lookback_carries) equal the
+prefix sums postprocess_plain takes over span_starts. Tolerance 0: the
+format fixes every byte. The file compiles no JAX executable but in
+test_entry_points_equal_jitted_jax (~12 s cold in one process, the JAX
+import included).
 
 On a card (marker `cuda`, skipped without one), each kernel against its
 plain version on the same cases, with its outputs poisoned beforehand so
@@ -36,7 +45,7 @@ from test_torch_two_phase import torch_one_thread  # noqa: F401 (autouse)
 
 KIB = 1024
 # name: (format, width and height in pixels, mips, swizzle, D3D12-aligned
-# pitch, delta encode, page size)
+# pitch, delta encode, page size[, row pitch in bytes])
 GEOMETRIES = {
     "bc1 64x72 blocks, swizzle, 32 KiB pages, partial last":
         (C.DATA_FORMAT_BC1, 256, 288, 1, True, False, True, 32 * KIB),
@@ -60,6 +69,16 @@ GEOMETRIES = {
         (C.DATA_FORMAT_BC5, 384, 352, 1, True, False, True, 128 * KIB),
     "bc5 1x1 block, swizzle":
         (C.DATA_FORMAT_BC5, 4, 4, 1, True, False, True, 32 * KIB),
+    # wider than a tile (2 pitches > 16 KiB), odd width, odd row pitch
+    "bc1 1031x7 blocks, swizzle, row pitch 8249, 32 KiB":
+        (C.DATA_FORMAT_BC1, 4124, 28, 1, True, False, True, 32 * KIB, 8249),
+    "bc1 64x64 blocks, 9 mips down to 1x1, swizzle, 32 KiB":
+        (C.DATA_FORMAT_BC1, 256, 256, 9, True, False, True, 32 * KIB),
+    "bc5 200x130 blocks, aligned pitch, swizzle, 128 KiB":
+        (C.DATA_FORMAT_BC5, 800, 520, 1, True, True, True, 128 * KIB),
+    # tiles of 20 rows (4000 colour bytes): 32 KiB pages cut them inside
+    "bc1 100x180 blocks, pages cut colour segments mid-tile, 32 KiB":
+        (C.DATA_FORMAT_BC1, 400, 720, 1, True, False, True, 32 * KIB),
 }
 FLAGS = ("every page", "no page", "some pages")
 
@@ -67,10 +86,11 @@ FLAGS = ("every page", "no page", "some pages")
 def geometry(name):
     """(JAX-package params, port params, texture size, page size) of a
     case, both initialised."""
-    fmt, w, h, mips, swz, aligned, delta, page = GEOMETRIES[name]
+    fmt, w, h, mips, swz, aligned, delta, page, *pitch = GEOMETRIES[name]
     kw = dict(precondition=True, swizzle=swz, delta_encode=delta,
               format=fmt, width_in_pixels=w, height_in_pixels=h,
-              num_mip_levels=mips, pitch_d3d12_aligned=aligned)
+              num_mip_levels=mips, pitch_d3d12_aligned=aligned,
+              row_pitch_in_bytes=pitch[0] if pitch else 0)
     probe = JP.DataConditionParams(**kw)
     probe.initialize(-1)            # fills the geometry; the size check fails
     size = probe.mip_offsets_bytes[probe.num_mip_levels]
@@ -166,6 +186,83 @@ def test_preprocess_plain_equals_jax(name):
     back = TO.postprocess_device(want_delta, tp, page, "cpu",
                                  set(np.flatnonzero(flags).tolist()))
     assert back == JP.decondition(want_cond, jp)
+
+
+@pytest.mark.parametrize("tile_bytes", (PK.TILE_BYTES, 1024))
+@pytest.mark.parametrize("name", GEOMETRIES)
+def test_tile_plan_partitions_and_composes_the_map(name, tile_bytes):
+    """The tiles' conditioned blocks follow one another from 0 to the last,
+    so each sub-stream's segments partition it once; every block lies in
+    its tile's pieces once, and the texture addresses they compose are
+    cond_addresses, which are build_cond_map's; the pieces' byte ranges,
+    padding included, cover the texture once."""
+    jp, tp, size, page = geometry(name)
+    geom = PK.pack_geometry(tp, size, page)
+    g = geom.tolist()
+    plan = PK.tile_plan(geom, tile_bytes)
+    b0, b1 = plan["b0"], plan["b1"]
+    assert b0[0] == 0 and b1[-1] == g[PK.G_TBLOCKS]
+    assert torch.equal(b0[1:], b1[:-1]) and bool((b1 >= b0).all())
+    for k in range(g[PK.G_NSUB]):
+        sz, s0 = g[PK.G_SUB_SIZE + k], g[PK.G_STREAM_OFF + k]
+        seg0 = plan["seg0"][:, k]
+        assert torch.equal(seg0, s0 + b0 * sz)
+        assert seg0[0] == s0 and seg0[-1] + (b1[-1] - b0[-1]) * sz == \
+            g[PK.G_STREAM_OFF + k + 1]
+    tile, cond, addr = PK.tile_blocks(geom, plan)
+    order = torch.argsort(cond)
+    assert torch.equal(cond[order], torch.arange(g[PK.G_TBLOCKS]))
+    assert bool(((cond >= b0[tile]) & (cond < b1[tile])).all())
+    composed = torch.cat([
+        (addr[order][:, None] + g[PK.G_SUB_OFF + k]
+         + torch.arange(g[PK.G_SUB_SIZE + k])[None, :]).reshape(-1)
+        for k in range(g[PK.G_NSUB])])
+    want = PK.cond_addresses(geom)
+    assert torch.equal(composed, want)
+    np.testing.assert_array_equal(want.numpy(), JP.build_cond_map(jp))
+    start, end = PK.tile_ranges(geom, plan)
+    ok = end > start
+    edges = torch.zeros(size + 1, dtype=torch.int64)
+    edges.index_add_(0, start[ok], torch.ones(int(ok.sum()),
+                                              dtype=torch.int64))
+    edges.index_add_(0, end[ok], -torch.ones(int(ok.sum()),
+                                             dtype=torch.int64))
+    assert bool((torch.cumsum(edges, 0)[:size] == 1).all())
+
+
+@pytest.mark.parametrize("mode", FLAGS)
+@pytest.mark.parametrize("name", GEOMETRIES)
+def test_lookback_carries_equal_span_prefix_sums(name, mode):
+    """Where the postprocess reads a carry (a tile's colour segment that
+    starts inside a flagged page's span, past its first byte), the twin's
+    carry is the sum modulo 256 of the span's bytes before the segment,
+    as postprocess_plain takes it over span_starts; and decoding the
+    segment's first byte with it gives postprocess_plain's byte."""
+    _, geom, cond, flags, _ = case_inputs(name, mode)
+    g = geom.tolist()
+    x = as_tensor(cond)
+    plan = PK.tile_plan(geom)
+    carries = PK.lookback_carries(x, geom, plan)
+    assert carries.shape == (len(plan["b0"]), g[PK.G_NCOLOR])
+    c = torch.cat([torch.zeros(1, dtype=torch.int64),
+                   torch.cumsum(x.to(torch.int64), 0)])
+    start = PK.span_starts(geom, flags)
+    dec = PK.postprocess_plain(x, geom, flags)
+    addr = PK.cond_addresses(geom)
+    used = 0
+    for ci in range(g[PK.G_NCOLOR]):
+        k = g[PK.G_COLOR + ci]
+        gs = plan["seg0"][:, k]
+        nonempty = plan["b1"] > plan["b0"]
+        st = start[gs.clamp(max=len(start) - 1)]
+        read = nonempty & (st >= 0) & (st != gs)
+        want = (c[gs] - c[st.clamp(min=0)]) & 255
+        assert torch.equal(carries[read, ci], want[read])
+        first = (carries[:, ci] + x[gs.clamp(max=len(x) - 1)].long()) & 255
+        assert torch.equal(first[read], dec[addr[gs[read]]].long())
+        used += int(read.sum())
+    if mode != "no page" and len(plan["b0"]) > 8:
+        assert used > 0
 
 
 def test_entry_points_equal_jitted_jax(monkeypatch):
@@ -265,6 +362,38 @@ def test_preprocess_kernel_equals_plain(cuda_dev, name, flags):
     want = PK.preprocess_plain(data.cpu(), geom, fl)
     assert torch.equal(cond.cpu(), want[0])
     assert torch.equal(delta.cpu(), want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GEOMETRIES)
+def test_kernel_tiles_and_records(cuda_dev, name):
+    """The library's tile size and tile count are tile_plan's; each
+    kernel's per-CTA record counts every tile once; the postprocess
+    leaves its look-back words zeroed, so that two raw launches on one
+    buffer give the same texture."""
+    _, tp, size, page = geometry(name)
+    geom = PK.pack_geometry(tp, size, page)
+    lib = _kernels.library()
+    tiles = len(PK.tile_plan(geom)["b0"])
+    assert lib.blg_precond_tile_bytes() == PK.TILE_BYTES
+    assert lib.blg_precond_tiles(geom.data_ptr()) == tiles
+    x = as_tensor(random_bytes(size, seed=3), cuda_dev)
+    out, rec = PK.postprocess_cuda(x, geom, out=poisoned(size, cuda_dev),
+                                   return_record=True)
+    *_, rec_pre = PK.preprocess_cuda(x, geom, return_record=True)
+    torch.cuda.synchronize()
+    for r in (rec, rec_pre):
+        assert int(r[:, PK.REC_TILES].sum()) == tiles
+        assert bool((r[:, PK.REC_TOTAL] > 0).all())
+    assert torch.equal(out.cpu(), PK.postprocess_plain(x.cpu(), geom))
+    work = PK.lookback_words(geom, cuda_dev)
+    for _ in range(2):
+        again = poisoned(size, cuda_dev)
+        assert lib.blg_postprocess(
+            geom.data_ptr(), x.data_ptr(), None, again.data_ptr(),
+            work.data_ptr(), None, _kernels.stream_ptr(cuda_dev)) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(again, out) and int(work.abs().sum()) == 0
 
 
 def bc3_texture(dev):
