@@ -8,10 +8,13 @@ several devices and the gathers across processes (parallel/), and the
 native host decoder (decode_cpu); and encode: device match finding with
 the native packer ("hybrid") or with the device serializer ("full", the
 greedy q1 tier or the windowed-DP q11 tier), BCn preconditioning on the
-device, and `python -m brotlig_tpu_torch.cli`. entry.py and tools/ are
-its entry point and stage profiles. The port imports nothing of
-brotlig_tpu: format/ and native/ are its own copies of the format
-definitions and of the host C++ (stager, CPU decoder, encoder). The
+device, the preconditioned host encode of the scalar page coder
+(refimpl/: its parse on the device, its serializer on the host), and
+`python -m brotlig_tpu_torch.cli`. entry.py and tools/ are its entry
+point and stage profiles. The port imports nothing of brotlig_tpu:
+format/, refimpl/ and native/ are its own copies of the format
+definitions, the scalar codec and the host C++ (stager, CPU decoder,
+encoder). The
 kernels under csrc/ are built with nvcc, and the host C++ with g++, on
 first use.
 """

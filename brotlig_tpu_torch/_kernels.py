@@ -19,7 +19,8 @@ torch's current device is per thread.
 
 ``LAUNCHES`` counts, per kernel, the launches the wrappers made (the
 texture postprocess and preprocess kernels of precondition.cu both under
-"precond"), and
+"precond", the sort and walk kernels of ref_parse.cu both under
+"ref_parse"), and
 ``SWEEP_LAUNCHES`` splits the sweep kernel's count by group width; a run
 resets both (``reset_launches``) and reads them to show that its main
 path went through the kernels. Threads that launch on several devices at
@@ -40,13 +41,14 @@ BUILD_DIR = os.path.join(_DIR, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libbrotlig_kernels.so")
 SOURCES = ("tables.cu", "decode.cu", "phase_a.cu", "sweep.cu",
            "dp_parse.cu", "pack.cu", "match.cu", "cost_model.cu",
-           "precondition.cu")
+           "precondition.cu", "ref_parse.cu")
 HEADERS = ("lane_ops.cuh", "page_round.cuh", "page_tables.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"tables": 0, "decode": 0, "phase_a": 0, "sweep": 0,
-            "dp_parse": 0, "pack": 0, "match": 0, "cost": 0, "precond": 0}
+            "dp_parse": 0, "pack": 0, "match": 0, "cost": 0, "precond": 0,
+            "ref_parse": 0}
 SWEEP_LAUNCHES = {128: 0, 512: 0, 1024: 0, 2048: 0}
 
 _lock = threading.Lock()
@@ -189,6 +191,11 @@ def library():
         lib.blg_precond_grid.argtypes = [vp, i32]
         lib.blg_precond_tile_bytes.restype = i32
         lib.blg_precond_tile_bytes.argtypes = []
+        lib.blg_ref_parse_sort.restype = i32
+        lib.blg_ref_parse_sort.argtypes = [vp, vp, i32, i32, vp, vp]
+        lib.blg_ref_parse_walk.restype = i32
+        lib.blg_ref_parse_walk.argtypes = [vp, vp, i32, i32, i32, i32, vp, vp,
+                                           vp, vp, vp, vp, vp]
         _lib = lib
         return _lib
 

@@ -1,6 +1,8 @@
 """Public API of the PyTorch/CUDA port (mirrors brotlig_tpu.api).
 
-encode()              -> device match finding (+ device or native packing)
+encode()              -> device match finding (+ device or native packing);
+                         the host encoder, or with dc_params the scalar
+                         page coder with its parse on the device
 decode()              -> batched page decode on a torch device
 decode_cpu()          -> the native multithreaded C++ decoder on the host
 decompressed_size()   -> header-only size query
@@ -19,6 +21,7 @@ from .format.precondition import (DataConditionParams, decondition,
 from .ops.decode import decode_stream
 from .ops.encode import encode_stream
 from .ops.encode_pack import encode_stream_full
+from .refimpl import codec as _refimpl
 
 __all__ = ["encode", "decode", "decode_cpu", "decompressed_size",
            "max_compressed_size"]
@@ -43,19 +46,24 @@ def encode(data: bytes, page_size: int = C.DEFAULT_PAGE_SIZE,
       the windowed-DP optimal parse (its block loop a CUDA kernel on the
       card), each page the smaller of the DP and the greedy parse.
     - "native" (brotlig_tpu's "cpu"): the native C++ encoder on the host;
-      quality >= 10 is its two-pass optimal parse. It has no
-      preconditioning: with dc_params it raises ValueError (brotlig_tpu
-      falls back to its Python encoder there, which the port does not
-      have).
+      quality >= 10 is its two-pass optimal parse. The native encoder has
+      no preconditioning, so with dc_params (any, as in brotlig_tpu: one
+      with precondition=False, or whose geometry does not fit the input,
+      gives a plain stream) this backend is brotlig_tpu's scalar page
+      coder (refimpl/codec.py), with brotlig_tpu's bytes: condition +
+      delta and the greedy-lazy hash-chain parse (max_chain candidates
+      a position) on `device`, each page serialized on the host. quality
+      does not apply there.
 
-    `device` is where the device backends run: "cuda" (the matcher, the
-    DP and the serializer as CUDA kernels) raises when torch has no CUDA
-    device, "cpu" runs their plain torch versions on the host.
-    `dc_params` enables BCn preconditioning (conditioned and delta-encoded
-    on `device`). feedback(msg_type, text) -> bool mirrors
+    `device` is where the device backends and the preconditioned native
+    route run: "cuda" (the matcher, the DP, the serializer, the texture
+    preprocess and the scalar coder's parse as CUDA kernels) raises when
+    torch has no CUDA device, "cpu" runs their plain versions on the
+    host. `dc_params` enables BCn preconditioning (conditioned and
+    delta-encoded on `device`). feedback(msg_type, text) -> bool mirrors
     BROTLIG_Feedback_Proc: called per page batch on the device backends
-    and per page by the native encoder; returning True raises
-    format.errors.Aborted."""
+    and per page by the native encoder and the scalar coder; returning
+    True raises format.errors.Aborted."""
     if backend == "hybrid":
         return encode_stream(data, page_size=page_size, dc_params=dc_params,
                              feedback=feedback, device=device)
@@ -65,8 +73,9 @@ def encode(data: bytes, page_size: int = C.DEFAULT_PAGE_SIZE,
                                   quality=quality, device=device)
     if backend == "native":
         if dc_params is not None:
-            raise ValueError("the native encoder has no preconditioning; "
-                             "use backend 'hybrid' or 'full' for dc_params")
+            return _refimpl.encode(data, page_size=page_size,
+                                   dc_params=dc_params, max_chain=max_chain,
+                                   feedback=feedback, device=device)
         return native.encode(data, page_size=page_size, max_chain=max_chain,
                              quality=quality, feedback=feedback)
     raise ValueError(f"backend={backend!r} not in {ENCODE_BACKENDS}")

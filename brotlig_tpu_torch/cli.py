@@ -8,7 +8,9 @@ and the reference sample CLI, sample/brotlig_cli.cpp): compress to
 
 An input that ends in .brotlig is decompressed, any other compressed.
 Encode and decode run on --device (default "cuda", which raises without a
-CUDA device); the "native" encode backend runs on the host.
+CUDA device); the "native" encode backend runs on the host, and with
+--precondition it is the scalar page coder, whose texture preprocess and
+page parse run on --device and whose serializer runs on the host.
 """
 from __future__ import annotations
 
@@ -38,11 +40,14 @@ def build_parser() -> argparse.ArgumentParser:
                    default="hybrid",
                    help="hybrid: device match finding + native packer "
                         "(greedy); full: device match finding + device "
-                        "serialization; native: the host C++ encoder")
+                        "serialization; native: the host C++ encoder, or "
+                        "with --precondition the scalar page coder (its "
+                        "parse on --device, the JAX package's bytes)")
     p.add_argument("--quality", type=int, default=11,
                    help="encode quality (>= 10: the optimal parse, on the "
                         "device for full, on the host for native; the "
-                        "hybrid is always greedy)")
+                        "hybrid is always greedy; not read by native with "
+                        "--precondition)")
     p.add_argument("--num-repeat", type=int, default=1,
                    help="repeat codec N times and report the best")
     p.add_argument("--compare-brotli", action="store_true",

@@ -1,8 +1,7 @@
 """Error model mirroring the reference BROTLIG_ERROR enum
 (inc/common/BrotligCommon.h:50-68) as a typed exception hierarchy, plus the
-feedback-message kinds (BROTLIG_MESSAGE_TYPE). The port's copy of the
-part of brotlig_tpu/format/errors.py it raises: same names, codes and
-messages."""
+feedback-message kinds (BROTLIG_MESSAGE_TYPE). The port's copy of
+brotlig_tpu/format/errors.py: same names, codes and messages."""
 from __future__ import annotations
 
 import enum
@@ -42,8 +41,16 @@ class Aborted(BrotligError):
     code = ErrorCode.ABORTED
 
 
+class PageSizeError(BrotligError):
+    code = ErrorCode.MIN_PAGE_SIZE
+
+
 class TooManyPages(BrotligError):
     code = ErrorCode.MAX_NUM_PAGES
+
+
+class PreconditionError(BrotligError):
+    code = ErrorCode.PRECON_INCORRECT_FORMAT
 
 
 class CorruptStream(BrotligError):

@@ -43,7 +43,7 @@ import torch
 
 from .. import native
 from ..format import constants as C
-from ..format.errors import Aborted, MessageType
+from ..format.errors import Aborted, MessageType, PageSizeError
 from ..format.headers import PreconditionHeader, StreamHeader, pack_page_table
 from . import match_kernel
 from .decode import resolve_device
@@ -414,7 +414,7 @@ def stream_setup(data: bytes, page_size: int, dc_params, device):
     flags): pages are encoded from `work`; a page stored raw holds its
     bytes of `raw_form`, the conditioned non-delta bytes."""
     if not (C.MIN_PAGE_SIZE <= page_size <= C.MAX_PAGE_SIZE):
-        raise ValueError("page size out of range")
+        raise PageSizeError("page size out of range")
     precondition = dc_params is not None and dc_params.precondition
     if precondition and not dc_params.initialize(len(data)):
         precondition = False

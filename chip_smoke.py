@@ -85,6 +85,20 @@ raw launches timed beside the first design's six, the plain version, the bound
 (bytes, and the probes the data needs), the bytes the design moves and,
 beside the sort phase, a torch.sort of the same keys, and their
 launches on the q1, hybrid, q11 and texture paths checked (two a call).
+Then the preconditioned host encode, brotlig_tpu_torch.encode(backend=
+"native", dc_params=..., device="cuda"), on the four textures, with the
+launch counts set to 0 before and read after (the preprocess once an
+encode, the parse's two kernels of csrc/ref_parse.cu once a group of 64
+pages): the random BC5 and the BC1 at 32 KiB pages equal the CPU
+route's streams, every stream decodes to its texture on the card and by
+decode_cpu, and config-3's encode is split by stage (preprocess, parse
+kernels, the parse's copy back, host serialization, assembly) beside
+the hybrid's and the full route's ratios. The parse kernels are held to
+the plain parse (tolerance 0) on 8 pages of each texture's delta form
+and on corpus pages (text, zero, four symbols, random, a short last
+page) at 32, 64 and 128 KiB and max_chain 1, 64 and 200, their raw
+launches timed beside the plain parse's host time and the bound (bytes
+read and commands written).
 Every
 stream encoded on the card is decoded on
 the card on both routes, with the launch counts checked, and those
@@ -499,7 +513,8 @@ def want_launches(cases, runs) -> tuple:
     every kernel of its route launches once a batch and a texture's
     postprocess once a decode: (counts, sweep counts by width)."""
     counts = {"tables": 0, "decode": 0, "phase_a": 0, "sweep": 0,
-              "dp_parse": 0, "pack": 0, "match": 0, "cost": 0, "precond": 0}
+              "dp_parse": 0, "pack": 0, "match": 0, "cost": 0, "precond": 0,
+              "ref_parse": 0}
     by_cw = dict.fromkeys(SWEEP_CWS, 0)
     for name, opts in runs:
         nb = batches_of(cases[name][1])
@@ -1217,7 +1232,7 @@ def sharded_phase(data: bytes, blob: bytes, gpu) -> dict:
                                  "differs from the input")
         if counts != {"tables": want, "decode": want, "phase_a": 0,
                       "sweep": 0, "dp_parse": 0, "pack": 0, "match": 0,
-                      "cost": 0, "precond": 0}:
+                      "cost": 0, "precond": 0, "ref_parse": 0}:
             raise AssertionError(f"decode_stream_sharded over {name} "
                                  f"launched {counts}, want {want} each")
         for k in total:
@@ -1271,7 +1286,7 @@ def dryrun_phase(gpu) -> dict:
     match = MK.LAUNCHES_PER_CALL * (1 + n)
     if counts != {"tables": want, "decode": want, "phase_a": 0, "sweep": 0,
                   "dp_parse": 0, "pack": 1, "match": match, "cost": 0,
-                  "precond": 2}:
+                  "precond": 2, "ref_parse": 0}:
         raise AssertionError(f"dryrun_multichip({n}) launched {counts}, "
                              f"want {want} each, one pack, {match} "
                              "matcher and two precond launches")
@@ -1389,11 +1404,11 @@ def decode_on_card(blob: bytes, data: bytes, what: str) -> dict:
             ("fused", {},
              {"tables": nb, "decode": nb, "phase_a": 0, "sweep": 0,
               "dp_parse": 0, "pack": 0, "match": 0, "cost": 0,
-              "precond": pc}),
+              "precond": pc, "ref_parse": 0}),
             ("two_phase", {"variant": "two_phase", "sweep_cw": 1024},
              {"tables": nb, "decode": 0, "phase_a": nb, "sweep": nb,
               "dp_parse": 0, "pack": 0, "match": 0, "cost": 0,
-              "precond": pc})):
+              "precond": pc, "ref_parse": 0})):
         _kernels.reset_launches()
         if brotlig_tpu_torch.decode(blob, device="cuda", **opts) != data:
             raise AssertionError(f"{what}: decode on the card {opts} "
@@ -1684,6 +1699,8 @@ def texture_encode_phase(name: str, tex: bytes, params, gpu) -> dict:
         packs["match launches"] = packs.get("match launches", 0) + mt
         packs["precond launches"] = packs.get("precond launches", 0) + pc
         packs["cost launches"] = packs.get("cost launches", 0) + ct
+        packs.setdefault("ratios", {})[f"{backend} q{quality}"] = \
+            len(tex) / len(blob)
         if full:    # the first batch's pack: greedy at q1, the DP's at q11
             packs[f"q{quality}"] = calls[quality >= 10]
             packs["launches"] = packs.get("launches", 0) + pk
@@ -2746,6 +2763,258 @@ def q11_phase(data: bytes, dev, gpu, tex_dp) -> dict:
             "costs": counts["cost"], "cost_in": runs[0][4]}
 
 
+# ---------------------------------------------------------------------------
+# The preconditioned host encode: encode(backend="native", dc_params=...)
+# ---------------------------------------------------------------------------
+
+REF_CHAINS = (1, 64, 200)
+REF_SIZES = (32768, 65536, 131072)
+REF_SAMPLE = 8       # pages of each texture's delta form held to the plain
+
+
+def ref_rows(datas, S: int):
+    """(pages uint8 [P, S], in_sizes int32 [P]) on the CPU from byte
+    strings of at most S bytes."""
+    import numpy as np
+    import torch
+    arr = np.zeros((len(datas), S), np.uint8)
+    for r, d in enumerate(datas):
+        arr[r, :len(d)] = np.frombuffer(d, np.uint8)
+    return (torch.from_numpy(arr),
+            torch.tensor([len(d) for d in datas], dtype=torch.int32))
+
+
+def ref_corpus_rows(data: bytes, S: int):
+    """A corpus text page, a zero page, a four-symbol page, a random page
+    and a short last page (corpus bytes, 1000 short)."""
+    import numpy as np
+    r = np.random.default_rng(S)
+    return ref_rows([data[:S], bytes(S),
+                     (r.integers(0, 4, S) * 0x55).astype(np.uint8).tobytes(),
+                     r.integers(0, 256, S, dtype=np.uint8).tobytes(),
+                     data[S: 2 * S - 1000]], S)
+
+
+def ref_parse_launch(pages, sizes, chain: int):
+    """The two parse kernels' raw launches on CUDA operands: (run, the
+    outputs ins, cpy, dist, ncmds, tail)."""
+    import torch
+    from brotlig_tpu_torch import _kernels
+    from brotlig_tpu_torch.ops import ref_parse_kernel as RK
+    P, S = pages.shape
+    mc = RK.max_cmds_for(S)
+    dev = pages.device
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+    scratch = empty(2 * P * S)
+    outs = [empty(P, mc), empty(P, mc), empty(P, mc), empty(P), empty(P)]
+    lib = _kernels.library()
+    sort = raw_launch(lib.blg_ref_parse_sort, [pages, sizes, P, S, scratch],
+                      dev)
+    walk = raw_launch(lib.blg_ref_parse_walk, [pages, sizes, P, S, chain, mc,
+                                               scratch, *outs], dev)
+
+    def run():
+        sort()
+        walk()
+    return run, outs
+
+
+def ref_parse_check(pages, sizes, chain: int, dev) -> dict:
+    """The parse kernels (raw launches, outputs poisoned) against the plain
+    parse on the same rows, tolerance 0 on every command and count; the
+    launches timed by CUDA events beside the plain parse's host time and
+    the bound (the bytes read once, the commands written once)."""
+    import torch
+    from brotlig_tpu_torch.ops import ref_parse_kernel as RK
+    t0 = time.perf_counter()
+    want = RK.find_matches_plain(pages, sizes, chain)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    run, got = ref_parse_launch(pages.to(dev), sizes.to(dev), chain)
+    for t in got:
+        t.fill_(-7)
+    run()
+    torch.cuda.synchronize()
+    nc = want[3]
+    cols = torch.arange(want[0].shape[1])[None, :] < nc[:, None]
+    err = max_abs_err([g.cpu()[cols] for g in got[:3]] + [g.cpu() for g in
+                                                          got[3:]],
+                      [w[cols] for w in want[:3]] + list(want[3:]))
+    ms = time_ms(run, REPS)
+    nbytes = int(sizes.sum()) + 12 * int(nc.sum()) + 8 * len(nc)
+    out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           **bound(nbytes, 0)}
+    out["pages"], out["cmds"] = len(nc), int(nc.sum())
+    return out
+
+
+def ref_stage_timers(codec, torch) -> tuple:
+    """Wrap refimpl.codec's steps to time them on the host clock (the parse
+    kernels' call synchronised): (timings, undo)."""
+    timings = {k: 0.0 for k in ("preprocess", "parse kernel", "parse copy "
+                                "and lists", "host serialization",
+                                "assembly")}
+    saved = {n: getattr(codec, n) for n in ("stream_setup",
+                                            "find_matches_pages",
+                                            "parse_group", "serialize_group",
+                                            "assemble")}
+    stage = {"stream_setup": "preprocess",
+             "find_matches_pages": "parse kernel",
+             "parse_group": "parse copy and lists",
+             "serialize_group": "host serialization",
+             "assemble": "assembly"}
+
+    def timed(name):
+        fn = saved[name]
+
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if name in ("stream_setup", "find_matches_pages"):
+                torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) * 1e3
+            timings[stage[name]] += dt
+            if name == "find_matches_pages":   # inside parse_group
+                timings["parse copy and lists"] -= dt
+            return out
+        return run
+    for name in saved:
+        setattr(codec, name, timed(name))
+
+    def undo():
+        for name, fn in saved.items():
+            setattr(codec, name, fn)
+    return timings, undo
+
+
+def refimpl_phase(texs: dict, data: bytes, ratios: dict, gpu) -> dict:
+    """brotlig_tpu_torch.encode(backend="native", dc_params=...,
+    device="cuda") on the four textures, with the launch counts set to 0
+    before and read after: preprocess once an encode, the parse's two
+    kernels once a group of 64 pages, nothing else. The random BC5 and
+    the BC1 at 32 KiB pages equal the CPU route's streams; every stream
+    decodes to its texture on the card (both routes) and by decode_cpu.
+    config-3's encode is split by stage. Then the parse kernels are held
+    to the plain parse (tolerance 0) on 8 pages of each texture's delta
+    form and on corpus pages at 32, 64 and 128 KiB at max_chain 1, 64 and
+    200, and timed. Returns the kernels line's row (config-3's 8 pages),
+    its launches on the main path and the decode launches."""
+    import numpy as np
+    import torch
+    import brotlig_tpu_torch
+    from brotlig_tpu_torch import _kernels
+    from brotlig_tpu_torch.ops import ref_parse_kernel as RK
+    from brotlig_tpu_torch.ops.precondition import preprocess_device
+    from brotlig_tpu_torch.refimpl import codec
+    dev = torch.device("cuda")
+    names = list(texs)
+    blobs, ms = {}, {}
+    timings, undo = ref_stage_timers(codec, torch)
+    _kernels.reset_launches()
+    try:
+        for name in names:
+            tex, _, params, page = texs[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            blobs[name] = brotlig_tpu_torch.encode(
+                tex, page_size=page, dc_params=params, backend="native",
+                device="cuda")
+            ms[name] = (time.perf_counter() - t0) * 1e3
+            if name == names[0]:
+                undo()
+    finally:
+        undo()
+    counts = dict(_kernels.LAUNCHES)
+    groups = sum(-(-len(texs[n][0]) // texs[n][3] // codec.BATCH_PAGES)
+                 for n in names)
+    want = {k: 0 for k in counts}
+    want["ref_parse"] = RK.LAUNCHES_PER_CALL * groups
+    want["precond"] = len(names)
+    if counts != want:
+        raise AssertionError(f"the native preconditioned encodes launched "
+                             f"{counts}, want {want}")
+    for name in names:
+        tex = texs[name][0]
+        print(f"[smoke] {name}, encode(backend='native', dc_params, "
+              f"device='cuda'): {ms[name]:.1f} ms, ratio "
+              f"{len(tex) / len(blobs[name]):.4f} [{gpu}]", flush=True)
+    print(f"[smoke] native preconditioned encodes' launches {counts} (two "
+          f"a group of {codec.BATCH_PAGES} pages, {groups} groups; one "
+          f"preprocess an encode)", flush=True)
+    c3 = len(texs[names[0]][0])
+    print(f"[smoke] {names[0]}, the native preconditioned encode by stage "
+          f"(ms, host clock, the card synchronised after the preprocess "
+          f"and each parse): "
+          f"{json.dumps({k: round(v, 3) for k, v in timings.items()})}; "
+          f"{c3 / ms[names[0]] / 1e3:.4f} MB/s; ratio "
+          f"{c3 / len(blobs[names[0]]):.4f} beside the hybrid's "
+          f"{ratios.get('hybrid q11', float('nan')):.4f}, full q1's "
+          f"{ratios.get('full q1', float('nan')):.4f} and full q11's "
+          f"{ratios.get('full q11', float('nan')):.4f} [{gpu}]", flush=True)
+    for name in names[2:]:
+        tex, _, params, page = texs[name]
+        t0 = time.perf_counter()
+        cpu = brotlig_tpu_torch.encode(tex, page_size=page, dc_params=params,
+                                       backend="native", device="cpu")
+        if cpu != blobs[name]:
+            raise AssertionError(f"{name}: the native preconditioned stream "
+                                 "on the card differs from the CPU route's")
+        print(f"[smoke] {name}: the card's stream == the CPU route's "
+              f"({(time.perf_counter() - t0) * 1e3:.1f} ms on the CPU)",
+              flush=True)
+    dec = []
+    for name in names:
+        tex = texs[name][0]
+        dec.append(decode_on_card(blobs[name], tex, f"{name}, native "
+                                  "preconditioned encode"))
+        if brotlig_tpu_torch.decode_cpu(blobs[name]) != tex:
+            raise AssertionError(f"{name}: decode_cpu of the native "
+                                 "preconditioned stream differs")
+    # the parse kernels against the plain parse
+    checks = {}
+    for name in names:
+        tex, _, params, page = texs[name]
+        _, work, _ = preprocess_device(tex, params, page, dev)
+        n_pages = -(-len(work) // page)
+        pick = np.unique(np.linspace(0, n_pages - 1, REF_SAMPLE).astype(int))
+        rows = ref_rows([work[i * page:(i + 1) * page] for i in pick], page)
+        checks[f"{name}, {len(pick)} pages"] = ref_parse_check(*rows, 64, dev)
+    for S in REF_SIZES:
+        rows = ref_corpus_rows(data, S)
+        for chain in REF_CHAINS:
+            checks[f"corpus {S // 1024} KiB, max_chain {chain}"] = \
+                ref_parse_check(*rows, chain, dev)
+    for what, r in checks.items():
+        print(f"[smoke] parse kernels == plain (tolerance 0, max_abs_err "
+              f"{r['max_abs_err']}) on {what}: {r['pages']} pages, "
+              f"{r['cmds']} commands; kernels {r['ms']:.4f} ms ("
+              f"{r['ms'] / r['pages']:.4f} a page), plain parse "
+              f"{r['plain_ms']:.1f} ms ({r['plain_ms'] / r['pages']:.1f} a "
+              f"page, host), bound {r['bound_ms']:.5f} ms, "
+              f"{100 * r['bound_ms'] / r['ms']:.3f}% of it [{gpu}]",
+              flush=True)
+        if r["max_abs_err"] != 0:
+            raise AssertionError(f"parse kernels differ from the plain parse "
+                                 f"on {what}")
+    # the route's own launch: config-3's first group of 64 pages
+    tex, _, params, page = texs[names[0]]
+    _, work, _ = preprocess_device(tex, params, page, dev)
+    arr, sizes = codec.page_rows(work, range(codec.BATCH_PAGES), page)
+    run, _ = ref_parse_launch(torch.from_numpy(arr).to(dev),
+                              torch.from_numpy(sizes).to(dev), 64)
+    group_ms = time_ms(run, REPS)
+    print(f"[smoke] parse kernels on {names[0]}'s first group of "
+          f"{codec.BATCH_PAGES} pages (the route's launch): {group_ms:.4f} "
+          f"ms [{gpu}]", flush=True)
+    row = dict(checks[f"{names[0]}, {REF_SAMPLE} pages"])
+    row["max_abs_err"] = max(r["max_abs_err"] for r in checks.values())
+    for k in ("pages", "cmds"):
+        row.pop(k)
+    return {"row": row, "launches": counts["ref_parse"],
+            "precond": counts["precond"], "decodes": dec}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2957,7 +3226,7 @@ def main() -> int:
           f"{nb})", flush=True)
     if counts != {"tables": nb, "decode": nb, "phase_a": 0, "sweep": 0,
                   "dp_parse": 0, "pack": 0, "match": 0, "cost": 0,
-                  "precond": 0}:
+                  "precond": 0, "ref_parse": 0}:
         raise AssertionError("the repeated decodes did not launch their "
                              "kernels once a batch")
     pipeline_never_syncs(blob64, dev)
@@ -2988,7 +3257,7 @@ def main() -> int:
                                  "inputs")
         if pool != {"tables": nb, "decode": nb, "phase_a": 0, "sweep": 0,
                     "dp_parse": 0, "pack": 0, "match": 0, "cost": 0,
-                    "precond": n_tex}:
+                    "precond": n_tex, "ref_parse": 0}:
             raise AssertionError(f"pooled decode launched {pool}, want "
                                  f"{nb} batches and {n_tex} postprocesses")
         precond_pool += pool["precond"]
@@ -3156,10 +3425,15 @@ def main() -> int:
           f"kernel launches on the encode main paths {cost_launches_main} "
           f"(q11 {q11['costs']}, texture {tex_packs['cost launches']}) "
           f"[{gpu}]", flush=True)
-    precond_enc = tex_packs["precond launches"]
+    t1 = time.perf_counter()
+    ref = refimpl_phase(texs, data16, tex_packs["ratios"], gpu)
+    print(f"[smoke] native preconditioned encode phase "
+          f"{time.perf_counter() - t1:.1f} s; parse kernel launches on its "
+          f"main path {ref['launches']} [{gpu}]", flush=True)
+    precond_enc = tex_packs["precond launches"] + ref["precond"]
     del tex_packs, q1_in, q11_in, cost_in, sized
     for got in [enc["launches"], hyb["launches"], q11["launches"]] \
-            + tex_launches:
+            + tex_launches + ref["decodes"]:
         for k in fused:
             fused[k] += got["fused"][k]
             two[k] += got["two_phase"][k]
@@ -3213,7 +3487,11 @@ def main() -> int:
          **{k: v for k, v in post[tex_names[0]].items()
             if k not in ("map_bytes", "left_bytes", "copy_ms")},
          "max_abs_err": max(r["max_abs_err"] for r in
-                            list(post.values()) + list(prep.values()))}]
+                            list(post.values()) + list(prep.values()))},
+        {"name": "ref_parse", "route": "cuda",
+         "source": src + "ref_parse.cu",
+         "replaces": "brotlig_tpu/refimpl/page_encoder.py:45",
+         "launches": ref["launches"], **ref["row"]}]
     print(f"[smoke] whole run {time.perf_counter() - t_start:.1f} s, "
           "builds included", flush=True)
     print(json.dumps({"kernels": kernels}))

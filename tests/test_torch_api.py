@@ -52,7 +52,9 @@ def test_import_pulls_in_no_jax():
               "brotlig_tpu_torch.entry",
               "brotlig_tpu_torch.tools.profile_decode",
               "brotlig_tpu_torch.tools.profile_encode",
-              "brotlig_tpu_torch.utils.corpus"):
+              "brotlig_tpu_torch.utils.corpus",
+              "brotlig_tpu_torch.refimpl.codec",
+              "brotlig_tpu_torch.ops.ref_parse_kernel"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -127,9 +127,6 @@ def test_feedback_per_batch_and_abort(backend, quality):
 
 def test_refusals():
     data = b"abc" * 100
-    _, params = bc1_texture(64, 64, seed=0)
-    with pytest.raises(ValueError, match="preconditioning"):
-        bt.encode(data, dc_params=params, backend="native")
     with pytest.raises(ValueError, match="backend"):
         bt.encode(data, backend="tpu", device="cpu")
     with pytest.raises(ValueError, match="page size"):

@@ -249,7 +249,8 @@ def test_decode_stream_two_phase_cuda(cuda_dev, cw, monkeypatch):
                   sweep_cw=cw) == data
     assert _kernels.LAUNCHES == {"tables": 1, "decode": 0, "phase_a": 1,
                                  "sweep": 1, "dp_parse": 0, "pack": 0,
-                                 "match": 0, "cost": 0, "precond": 0}
+                                 "match": 0, "cost": 0, "precond": 0,
+                                 "ref_parse": 0}
     assert _kernels.SWEEP_LAUNCHES[cw] == 1
 
 
