@@ -19,7 +19,7 @@ torch's current device is per thread.
 
 ``LAUNCHES`` counts, per kernel, the launches the wrappers made (the
 texture postprocess and preprocess kernels of precondition.cu both under
-"precond", the sort and walk kernels of ref_parse.cu both under
+"precond", the sort, walk and join kernels of ref_parse.cu all under
 "ref_parse"), and
 ``SWEEP_LAUNCHES`` splits the sweep kernel's count by group width; a run
 resets both (``reset_launches``) and reads them to show that its main
@@ -194,8 +194,11 @@ def library():
         lib.blg_ref_parse_sort.restype = i32
         lib.blg_ref_parse_sort.argtypes = [vp, vp, i32, i32, vp, vp]
         lib.blg_ref_parse_walk.restype = i32
-        lib.blg_ref_parse_walk.argtypes = [vp, vp, i32, i32, i32, i32, vp, vp,
-                                           vp, vp, vp, vp, vp]
+        lib.blg_ref_parse_walk.argtypes = [vp, vp, i32, i32, i32, vp, vp, vp,
+                                           vp, vp]
+        lib.blg_ref_parse_join.restype = i32
+        lib.blg_ref_parse_join.argtypes = [vp, vp, i32, i32, i32, i32, vp, vp,
+                                           vp, vp, vp, vp, vp, vp, vp, vp]
         _lib = lib
         return _lib
 

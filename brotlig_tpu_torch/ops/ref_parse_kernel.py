@@ -4,12 +4,15 @@ wrapper of csrc/ref_parse.cu and its plain version.
 find_matches_pages computes refimpl/page_encoder.py::find_matches (the
 JAX package's brotlig_tpu/refimpl/page_encoder.py:45, a hash-chain parse
 in host Python, which has no TPU kernel) for every row of a batch. On
-CUDA tensors it launches the two kernels of csrc/ref_parse.cu, each
-counted under ``_kernels.LAUNCHES["ref_parse"]``: sort (a block a page:
-the page's positions stably sorted by hash, so that a chain is a run of
-slots) and walk (a warp a page: the greedy-lazy walk, 32 chain candidates
-a step). On CPU tensors it runs find_matches a row at a time, the plain
-version. refimpl/codec.py calls it once a group of pages.
+CUDA tensors it launches the three kernels of csrc/ref_parse.cu, each
+counted under ``_kernels.LAUNCHES["ref_parse"]``: sort (a cluster of
+CTAs a page: the page's positions stably sorted by hash, so that a chain
+is a run of slots), walk (a warp a segment of SEGMENT positions: the
+greedy-lazy walk from the segment's start, speculatively) and join (a
+block a page: each walker's continuation, then the true walk through the
+walkers' paths, the commands copied out). On CPU tensors it runs
+find_matches a row at a time, the plain version. refimpl/codec.py calls
+it once a group of pages.
 """
 from __future__ import annotations
 
@@ -19,8 +22,14 @@ import torch
 from .. import _kernels
 from ..refimpl.page_encoder import find_matches
 
-LAUNCHES_PER_CALL = 2
+LAUNCHES_PER_CALL = 3
 MAX_PAGE = 1 << 17
+SEGMENT = 1024          # positions a walker's segment (csrc/ref_parse.cu kSeg)
+
+
+def segments_for(S: int) -> int:
+    """The walkers a page of S bytes: one a segment."""
+    return -(-S // SEGMENT)
 
 
 def max_cmds_for(S: int) -> int:
@@ -61,34 +70,52 @@ def find_matches_plain(pages, in_sizes, max_chain: int):
     return ins, cpy, dist, torch.from_numpy(ncmds), torch.from_numpy(tail)
 
 
+def launch_plan(pages, sizes, max_chain: int):
+    """The kernels' launches on CUDA operands (pages uint8 [P, S], 16-byte
+    aligned; sizes int32 [P]), in order: (outputs (ins, cpy, dist, ncmds,
+    tail), [(stage, C entry point, arguments)]), tensors among the
+    arguments in place of their pointers. find_matches_cuda launches them;
+    chip_smoke.py launches them raw and times each stage. The scratch: the
+    sort's table [P, 2, S], and per walker its summary (commands, exit,
+    last command's end), its marks bitmap and its own and its
+    continuation's commands."""
+    dev = pages.device
+    P, S = pages.shape
+    K, mc = segments_for(S), max_cmds_for(S)
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+    table, segs = empty(P, 2, S), empty(P, K, 4)
+    marks, lists = empty(P, K, SEGMENT // 32), empty(P, K, 2, 3, SEGMENT // 4)
+    outs = (empty(P, mc), empty(P, mc), empty(P, mc), empty(P), empty(P))
+    chain = int(max_chain)
+    return outs, [
+        ("sort", "blg_ref_parse_sort", [pages, sizes, P, S, table]),
+        ("walk", "blg_ref_parse_walk", [pages, sizes, P, S, chain, table,
+                                        segs, marks, lists]),
+        ("join", "blg_ref_parse_join", [pages, sizes, P, S, chain, mc, table,
+                                        segs, marks, lists, *outs])]
+
+
 def find_matches_cuda(pages, in_sizes, max_chain: int):
-    """The two kernels on the pages' card. Returns (ins, cpy, dist [P,
+    """The kernels on the pages' card. Returns (ins, cpy, dist [P,
     max_cmds_for(S)] int32, ncmds [P], tail [P]): find_matches_plain's
-    tensors, on the card. A call allocates a scratch of 8 P S bytes."""
+    tensors, on the card. A call allocates a scratch of about 14 P S
+    bytes."""
     pages = pages.contiguous()
     if pages.data_ptr() % 16:
         pages = pages.clone()
     dev = pages.device
     sizes = in_sizes.to(device=dev, dtype=torch.int32).contiguous()
-    P, S = pages.shape
-    mc = max_cmds_for(S)
-    scratch = torch.empty(2 * P * S, dtype=torch.int32, device=dev)
-    ins, cpy, dist = (torch.empty((P, mc), dtype=torch.int32, device=dev)
-                      for _ in range(3))
-    ncmds, tail = (torch.empty(P, dtype=torch.int32, device=dev)
-                   for _ in range(2))
-    _kernels.check_cuda_args(pages, sizes, scratch, ins, cpy, dist, ncmds,
-                             tail)
-    if P:
-        _kernels.launch("ref_parse", "blg_ref_parse_sort", dev,
-                        pages.data_ptr(), sizes.data_ptr(), P, S,
-                        scratch.data_ptr())
-        _kernels.launch("ref_parse", "blg_ref_parse_walk", dev,
-                        pages.data_ptr(), sizes.data_ptr(), P, S,
-                        int(max_chain), mc, scratch.data_ptr(),
-                        ins.data_ptr(), cpy.data_ptr(), dist.data_ptr(),
-                        ncmds.data_ptr(), tail.data_ptr())
-    return ins, cpy, dist, ncmds, tail
+    outs, plan = launch_plan(pages, sizes, max_chain)
+    _kernels.check_cuda_args(*(a for _, _, args in plan for a in args
+                               if isinstance(a, torch.Tensor)))
+    if pages.shape[0]:
+        for _, entry, args in plan:
+            _kernels.launch("ref_parse", entry, dev, *(
+                a.data_ptr() if isinstance(a, torch.Tensor) else a
+                for a in args))
+    return outs
 
 
 def find_matches_pages(pages, in_sizes, max_chain: int = 64):

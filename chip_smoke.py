@@ -88,17 +88,23 @@ launches on the q1, hybrid, q11 and texture paths checked (two a call).
 Then the preconditioned host encode, brotlig_tpu_torch.encode(backend=
 "native", dc_params=..., device="cuda"), on the four textures, with the
 launch counts set to 0 before and read after (the preprocess once an
-encode, the parse's two kernels of csrc/ref_parse.cu once a group of 64
-pages): the random BC5 and the BC1 at 32 KiB pages equal the CPU
+encode, the parse's three kernels of csrc/ref_parse.cu once a group of
+64 pages): the random BC5 and the BC1 at 32 KiB pages equal the CPU
 route's streams, every stream decodes to its texture on the card and by
 decode_cpu, and config-3's encode is split by stage (preprocess, parse
 kernels, the parse's copy back, host serialization, assembly) beside
 the hybrid's and the full route's ratios. The parse kernels are held to
 the plain parse (tolerance 0) on 8 pages of each texture's delta form
 and on corpus pages (text, zero, four symbols, random, a short last
-page) at 32, 64 and 128 KiB and max_chain 1, 64 and 200, their raw
-launches timed beside the plain parse's host time and the bound (bytes
-read and commands written).
+page) at 32, 64 and 128 KiB and max_chain 1, 64 and 200 and on the rows
+that are hard for the walk's join at 64 and 128 KiB (max_chain 0, 1 and
+64; tests/test_torch_ref_parse.py's join_rows, whose numpy model of the
+split walk must find on them, at max_chain 1 and 64, continuations that
+meet a walker's mark, one that meets none and walkers the true walk
+skips), their raw launches timed together and each of sort, walk and
+join alone, beside the plain parse's host time and the bound (bytes
+read and commands written; operations: the chain candidates the walk
+compares).
 Every
 stream encoded on the card is decoded on
 the card on both routes, with the launch counts checked, and those
@@ -2796,42 +2802,69 @@ def ref_corpus_rows(data: bytes, S: int):
 
 
 def ref_parse_launch(pages, sizes, chain: int):
-    """The two parse kernels' raw launches on CUDA operands: (run, the
-    outputs ins, cpy, dist, ncmds, tail)."""
-    import torch
+    """The parse kernels' raw launches on CUDA operands, from the wrapper's
+    launch plan: (run, {stage: its launch}, the outputs ins, cpy, dist,
+    ncmds, tail)."""
     from brotlig_tpu_torch import _kernels
     from brotlig_tpu_torch.ops import ref_parse_kernel as RK
-    P, S = pages.shape
-    mc = RK.max_cmds_for(S)
-    dev = pages.device
-
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.int32, device=dev)
-    scratch = empty(2 * P * S)
-    outs = [empty(P, mc), empty(P, mc), empty(P, mc), empty(P), empty(P)]
+    outs, plan = RK.launch_plan(pages, sizes, chain)
     lib = _kernels.library()
-    sort = raw_launch(lib.blg_ref_parse_sort, [pages, sizes, P, S, scratch],
-                      dev)
-    walk = raw_launch(lib.blg_ref_parse_walk, [pages, sizes, P, S, chain, mc,
-                                               scratch, *outs], dev)
+    stages = {stage: raw_launch(getattr(lib, entry), args, pages.device)
+              for stage, entry, args in plan}
 
     def run():
-        sort()
-        walk()
-    return run, outs
+        for launch in stages.values():
+            launch()
+    return run, stages, outs
+
+
+def parse_ops(pages, sizes, chain: int, want) -> int:
+    """The operations bound's count: the chain candidates the walk's best
+    calls compare, one operation each, every position's call counted once
+    (the lazy test's call at pos + 1 and that position's own). From the
+    plain parse's commands (want): best is called at every position of an
+    insert run, at each command's position and the one after it, and over
+    the tail; at q it compares min(max_chain, the positions before q with
+    q's hash) candidates, none where q + 4 > n."""
+    import numpy as np
+    ops = 0
+    arr = pages.numpy()
+    ins, cpy, ncmds = (t.numpy() for t in (want[0], want[1], want[3]))
+    for row, n in enumerate(sizes.tolist()):
+        if n < 4 or chain <= 0:
+            continue
+        v = arr[row, :n].astype(np.uint32)
+        quad = v[:-3] | (v[1:-2] << 8) | (v[2:-1] << 16) | (v[3:] << 24)
+        h = (quad * np.uint32(0x1E35A7BD)) >> np.uint32(15)
+        order = np.argsort(h, kind="stable")
+        hs = h[order]
+        first = np.r_[0, np.flatnonzero(hs[1:] != hs[:-1]) + 1]
+        lead = np.repeat(first, np.diff(np.r_[first, len(hs)]))
+        rank = np.empty(len(h), np.int64)
+        rank[order] = np.arange(len(h)) - lead
+        called = np.zeros(n + 1, bool)
+        anchor = 0
+        for i, c in zip(ins[row, :ncmds[row]], cpy[row, :ncmds[row]]):
+            p = anchor + int(i)
+            called[anchor:p + 2] = True
+            anchor = p + int(c)
+        called[anchor:n] = True
+        ops += int(np.minimum(rank, chain)[called[:len(h)]].sum())
+    return ops
 
 
 def ref_parse_check(pages, sizes, chain: int, dev) -> dict:
     """The parse kernels (raw launches, outputs poisoned) against the plain
     parse on the same rows, tolerance 0 on every command and count; the
-    launches timed by CUDA events beside the plain parse's host time and
-    the bound (the bytes read once, the commands written once)."""
+    launches timed by CUDA events, together and stage by stage, beside the
+    plain parse's host time and the bound (bytes: the pages read once, the
+    commands written once; operations: parse_ops)."""
     import torch
     from brotlig_tpu_torch.ops import ref_parse_kernel as RK
     t0 = time.perf_counter()
     want = RK.find_matches_plain(pages, sizes, chain)
     plain_ms = (time.perf_counter() - t0) * 1e3
-    run, got = ref_parse_launch(pages.to(dev), sizes.to(dev), chain)
+    run, stages, got = ref_parse_launch(pages.to(dev), sizes.to(dev), chain)
     for t in got:
         t.fill_(-7)
     run()
@@ -2842,10 +2875,12 @@ def ref_parse_check(pages, sizes, chain: int, dev) -> dict:
                                                           got[3:]],
                       [w[cols] for w in want[:3]] + list(want[3:]))
     ms = time_ms(run, REPS)
+    split = {stage: time_ms(launch, REPS) for stage, launch in stages.items()}
     nbytes = int(sizes.sum()) + 12 * int(nc.sum()) + 8 * len(nc)
+    ops = parse_ops(pages, sizes, chain, want)
     out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           **bound(nbytes, 0)}
-    out["pages"], out["cmds"] = len(nc), int(nc.sum())
+           **bound(nbytes, ops)}
+    out.update(pages=len(nc), cmds=int(nc.sum()), split=split, ops=ops)
     return out
 
 
@@ -2888,17 +2923,103 @@ def ref_stage_timers(codec, torch) -> tuple:
     return timings, undo
 
 
+def ref_join_cases(datas, chain: int) -> dict:
+    """The join's cases over rows (byte strings) at max_chain chain, by the
+    numpy model of the split walk (tests/test_torch_ref_parse.py::
+    split_parse, segments of the kernels' length): continuations that meet
+    a walker's mark ("joined"), that meet none ("lost"), and walkers the
+    true walk never takes ("skipped")."""
+    from brotlig_tpu_torch.ops import ref_parse_kernel as RK
+    from test_torch_ref_parse import split_parse
+    seen = {"joined": 0, "lost": 0, "skipped": 0}
+    for d in datas:
+        st = {}
+        split_parse(d, chain, RK.SEGMENT, st)
+        for key in seen:
+            seen[key] += st[key]
+    return seen
+
+
+def parse_checks(texs: dict, data: bytes, dev, gpu) -> dict:
+    """The parse kernels held to the plain parse (tolerance 0) on 8 pages
+    of each texture's delta form, on corpus rows at 32, 64 and 128 KiB and
+    max_chain 1, 64 and 200, and on the join's hard rows at 64 and 128 KiB;
+    each timed, together and stage by stage, beside the plain parse and
+    the bound; then the route's own launch, config-3's first group of 64
+    pages, timed. Returns {row: its check} with the group's time under
+    "group"."""
+    import numpy as np
+    import torch
+    from brotlig_tpu_torch.ops import ref_parse_kernel as RK
+    from brotlig_tpu_torch.ops.precondition import preprocess_device
+    from brotlig_tpu_torch.refimpl import codec
+    names = list(texs)
+    checks = {}
+    for name in names:
+        tex, _, params, page = texs[name]
+        _, work, _ = preprocess_device(tex, params, page, dev)
+        n_pages = -(-len(work) // page)
+        pick = np.unique(np.linspace(0, n_pages - 1, REF_SAMPLE).astype(int))
+        rows = ref_rows([work[i * page:(i + 1) * page] for i in pick], page)
+        checks[f"{name}, {len(pick)} pages"] = ref_parse_check(*rows, 64, dev)
+    for S in REF_SIZES:
+        rows = ref_corpus_rows(data, S)
+        for chain in REF_CHAINS:
+            checks[f"corpus {S // 1024} KiB, max_chain {chain}"] = \
+                ref_parse_check(*rows, chain, dev)
+    from test_torch_ref_parse import join_rows
+    for S in REF_SIZES[1:]:
+        datas = list(join_rows(RK.SEGMENT, S).values())
+        rows = ref_rows(datas, S)
+        for chain in (0, 1, 64):
+            what = (f"join rows {S // 1024} KiB ({RK.SEGMENT}-byte segments), "
+                    f"max_chain {chain}")
+            cases = ref_join_cases(datas, chain)
+            print(f"[smoke] the join's cases on {what} (numpy model): "
+                  f"{json.dumps(cases)}", flush=True)
+            if chain > 0 and not all(cases.values()):
+                raise AssertionError(f"{what}: a case of the join is not "
+                                     f"reached: {cases}")
+            checks[what] = ref_parse_check(*rows, chain, dev)
+    for what, r in checks.items():
+        print(f"[smoke] parse kernels == plain (tolerance 0, max_abs_err "
+              f"{r['max_abs_err']}) on {what}: {r['pages']} pages, "
+              f"{r['cmds']} commands; kernels {r['ms']:.4f} ms ("
+              f"{r['ms'] / r['pages']:.4f} a page; by stage alone "
+              f"{json.dumps({k: round(v, 4) for k, v in r['split'].items()})}"
+              f"), plain parse {r['plain_ms']:.1f} ms ("
+              f"{r['plain_ms'] / r['pages']:.1f} a page, host), bound "
+              f"{r['bound_ms']:.5f} ms by {r['bound_by']} ("
+              f"{r['ops']} candidates compared), "
+              f"{100 * r['bound_ms'] / r['ms']:.4f}% of it [{gpu}]",
+              flush=True)
+        if r["max_abs_err"] != 0:
+            raise AssertionError(f"parse kernels differ from the plain parse "
+                                 f"on {what}")
+    # the route's own launch: config-3's first group of 64 pages
+    tex, _, params, page = texs[names[0]]
+    _, work, _ = preprocess_device(tex, params, page, dev)
+    arr, sizes = codec.page_rows(work, range(codec.BATCH_PAGES), page)
+    run, stages, _ = ref_parse_launch(torch.from_numpy(arr).to(dev),
+                                      torch.from_numpy(sizes).to(dev), 64)
+    group_ms = time_ms(run, REPS)
+    split = {stage: round(time_ms(launch, REPS), 4)
+             for stage, launch in stages.items()}
+    print(f"[smoke] parse kernels on {names[0]}'s first group of "
+          f"{codec.BATCH_PAGES} pages (the route's launch): {group_ms:.4f} "
+          f"ms; by stage alone {json.dumps(split)} [{gpu}]", flush=True)
+    checks["group"] = group_ms
+    return checks
+
+
 def refimpl_phase(texs: dict, data: bytes, ratios: dict, gpu) -> dict:
     """brotlig_tpu_torch.encode(backend="native", dc_params=...,
     device="cuda") on the four textures, with the launch counts set to 0
-    before and read after: preprocess once an encode, the parse's two
+    before and read after: preprocess once an encode, the parse's three
     kernels once a group of 64 pages, nothing else. The random BC5 and
     the BC1 at 32 KiB pages equal the CPU route's streams; every stream
     decodes to its texture on the card (both routes) and by decode_cpu.
-    config-3's encode is split by stage. Then the parse kernels are held
-    to the plain parse (tolerance 0) on 8 pages of each texture's delta
-    form and on corpus pages at 32, 64 and 128 KiB at max_chain 1, 64 and
-    200, and timed. Returns the kernels line's row (config-3's 8 pages),
+    config-3's encode is split by stage. Then parse_checks. Returns the kernels line's row (config-3's 8 pages),
     its launches on the main path and the decode launches."""
     import numpy as np
     import torch
@@ -2939,8 +3060,9 @@ def refimpl_phase(texs: dict, data: bytes, ratios: dict, gpu) -> dict:
         print(f"[smoke] {name}, encode(backend='native', dc_params, "
               f"device='cuda'): {ms[name]:.1f} ms, ratio "
               f"{len(tex) / len(blobs[name]):.4f} [{gpu}]", flush=True)
-    print(f"[smoke] native preconditioned encodes' launches {counts} (two "
-          f"a group of {codec.BATCH_PAGES} pages, {groups} groups; one "
+    print(f"[smoke] native preconditioned encodes' launches {counts} ("
+          f"{RK.LAUNCHES_PER_CALL} a group of {codec.BATCH_PAGES} pages, "
+          f"{groups} groups; one "
           f"preprocess an encode)", flush=True)
     c3 = len(texs[names[0]][0])
     print(f"[smoke] {names[0]}, the native preconditioned encode by stage "
@@ -2971,45 +3093,11 @@ def refimpl_phase(texs: dict, data: bytes, ratios: dict, gpu) -> dict:
         if brotlig_tpu_torch.decode_cpu(blobs[name]) != tex:
             raise AssertionError(f"{name}: decode_cpu of the native "
                                  "preconditioned stream differs")
-    # the parse kernels against the plain parse
-    checks = {}
-    for name in names:
-        tex, _, params, page = texs[name]
-        _, work, _ = preprocess_device(tex, params, page, dev)
-        n_pages = -(-len(work) // page)
-        pick = np.unique(np.linspace(0, n_pages - 1, REF_SAMPLE).astype(int))
-        rows = ref_rows([work[i * page:(i + 1) * page] for i in pick], page)
-        checks[f"{name}, {len(pick)} pages"] = ref_parse_check(*rows, 64, dev)
-    for S in REF_SIZES:
-        rows = ref_corpus_rows(data, S)
-        for chain in REF_CHAINS:
-            checks[f"corpus {S // 1024} KiB, max_chain {chain}"] = \
-                ref_parse_check(*rows, chain, dev)
-    for what, r in checks.items():
-        print(f"[smoke] parse kernels == plain (tolerance 0, max_abs_err "
-              f"{r['max_abs_err']}) on {what}: {r['pages']} pages, "
-              f"{r['cmds']} commands; kernels {r['ms']:.4f} ms ("
-              f"{r['ms'] / r['pages']:.4f} a page), plain parse "
-              f"{r['plain_ms']:.1f} ms ({r['plain_ms'] / r['pages']:.1f} a "
-              f"page, host), bound {r['bound_ms']:.5f} ms, "
-              f"{100 * r['bound_ms'] / r['ms']:.3f}% of it [{gpu}]",
-              flush=True)
-        if r["max_abs_err"] != 0:
-            raise AssertionError(f"parse kernels differ from the plain parse "
-                                 f"on {what}")
-    # the route's own launch: config-3's first group of 64 pages
-    tex, _, params, page = texs[names[0]]
-    _, work, _ = preprocess_device(tex, params, page, dev)
-    arr, sizes = codec.page_rows(work, range(codec.BATCH_PAGES), page)
-    run, _ = ref_parse_launch(torch.from_numpy(arr).to(dev),
-                              torch.from_numpy(sizes).to(dev), 64)
-    group_ms = time_ms(run, REPS)
-    print(f"[smoke] parse kernels on {names[0]}'s first group of "
-          f"{codec.BATCH_PAGES} pages (the route's launch): {group_ms:.4f} "
-          f"ms [{gpu}]", flush=True)
+    checks = parse_checks(texs, data, dev, gpu)
+    checks.pop("group")
     row = dict(checks[f"{names[0]}, {REF_SAMPLE} pages"])
     row["max_abs_err"] = max(r["max_abs_err"] for r in checks.values())
-    for k in ("pages", "cmds"):
+    for k in ("pages", "cmds", "split", "ops"):
         row.pop(k)
     return {"row": row, "launches": counts["ref_parse"],
             "precond": counts["precond"], "decodes": dec}
@@ -3020,6 +3108,7 @@ def main() -> int:
     import torch
 
     sys.path.insert(0, ROOT)
+    sys.path.append(os.path.join(ROOT, "tests"))   # the join's rows
     import brotlig_tpu_torch
     from brotlig_tpu_torch import _kernels, native
     from brotlig_tpu_torch.format.headers import parse_container
@@ -3045,7 +3134,6 @@ def main() -> int:
     for line in _kernels.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"[smoke]   {line.strip()}")
-
     t0 = time.perf_counter()
     data16 = corpus(BATCH)
     blob16 = native.encode(data16, page_size=PAGE, quality=11)

@@ -12,8 +12,9 @@ pages.
 
 On a card (marker `cuda`, skipped without one), the parse kernels
 (csrc/ref_parse.cu) against find_matches on page kinds at 32, 64 and 128
-KiB and several max_chain, and the route on the card against the CPU
-route:
+KiB and several max_chain, on the rows that are hard for the walk's join
+(test_torch_ref_parse.join_rows) at 64 and 128 KiB, and the route on the
+card against the CPU route:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_refimpl.py
@@ -51,6 +52,7 @@ from brotlig_tpu_torch.refimpl import page_decoder as TD
 from brotlig_tpu_torch.refimpl import page_encoder as TE
 from test_roundtrip import make_data
 from test_torch_precondition import params_pair, texture, texture_size
+from test_torch_ref_parse import join_rows
 from test_torch_two_phase import torch_one_thread  # noqa: F401 (autouse)
 
 PS = C.MIN_PAGE_SIZE
@@ -453,12 +455,24 @@ def parse_batch(S: int, kinds, seed: int):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S,chains", [(32768, (0, 1, 4, 64, 200)),
-                                      (65536, (1, 64)), (131072, (64,))])
-def test_parse_kernel_equals_plain(cuda_dev, S, chains):
+@pytest.mark.parametrize("S,chains,rows", [
+    pytest.param(32768, (0, 1, 4, 64, 200), "kinds", id="32768-chains0"),
+    pytest.param(65536, (1, 64), "kinds", id="65536-chains1"),
+    pytest.param(131072, (64,), "kinds", id="131072-chains2"),
+    pytest.param(65536, (0, 1, 64), "join", id="65536-join"),
+    pytest.param(131072, (1, 64, 200), "join", id="131072-join")])
+def test_parse_kernel_equals_plain(cuda_dev, S, chains, rows):
     kinds = ("text", "zeros", "runs", "four", "random", "structured",
              "repetitive", "text")
-    pages, sizes = parse_batch(S, kinds, seed=S // 32768)
+    if rows == "kinds":
+        pages, sizes = parse_batch(S, kinds, seed=S // 32768)
+    else:           # the rows that are hard for the walk's join
+        datas = list(join_rows(RK.SEGMENT, S).values())
+        arr = np.zeros((len(datas), S), np.uint8)
+        for r, d in enumerate(datas):
+            arr[r, :len(d)] = np.frombuffer(d, np.uint8)
+        pages = torch.from_numpy(arr)
+        sizes = torch.tensor([len(d) for d in datas], dtype=torch.int32)
     for chain in chains:
         _kernels.reset_launches()
         got = RK.find_matches_pages(pages.to(cuda_dev), sizes.to(cuda_dev),
@@ -472,7 +486,7 @@ def test_parse_kernel_equals_plain(cuda_dev, S, chains):
             if g.dim() == 2:        # beyond ncmds the kernel leaves garbage
                 cols = torch.arange(g.shape[1])[None, :] < nc[:, None]
                 g, w = g.cpu()[cols], w[cols]
-            assert torch.equal(g.cpu(), w), (S, chain, name)
+            assert torch.equal(g.cpu(), w), (S, chain, rows, name)
 
 
 @pytest.mark.cuda
