@@ -1,0 +1,7 @@
+"""Encoded bytes (1e6) a second: the input bytes of every call the
+window completed over the window's seconds."""
+
+
+def read(run):
+    done = sum(len(run.items[r.item].data) for r in run.records if r.ok)
+    return done / run.window_s / 1e6
